@@ -9,25 +9,35 @@ NVIDIA H100.
 2. Builds every kernel from ``tpu_operator_torch/csrc`` with nvcc (sm_90a)
    and prints the build seconds; reads the library's SASS with cuobjdump and
    requires every matmul instantiation to issue wgmma (``HGMMA``) and TMA
-   loads (``UTMALDG``), printing the counts.
+   loads (``UTMALDG``) and the triad kernel to issue its float4 loads and
+   streaming float4 stores (``STG.E.EF.128``), printing the counts; prints
+   ``-Xptxas -v``'s registers, shared memory and spills for the triad and
+   requires no spill.
 3. Holds each kernel against its plain PyTorch version on the card: the
    matmul at every (block, K-step) instantiation's smallest shape and a
-   ragged one that wraps its ring, then every kernel at the shapes the
-   validator path gives it (the matmul at 512^2 for the burn-in, both
-   blocks, and at 2048^2 for the probe), and times kernel, plain version and
-   the one PyTorch library call computing the same function: device time
-   per call from torch.profiler (``ms``, ``plain_ms``, ``library_ms``) and
-   the CUDA-event time of back-to-back calls (``*call_ms``, host launch cost
+   ragged one that wraps its ring, the triad at the probe's and the memory
+   sweep's array sizes and ragged ones, at every block size the validator
+   uses (with ``b`` left bit-equal and the result in ``a``'s storage),
+   then every kernel at the shapes the validator path gives it (the matmul
+   at 512^2 for the burn-in, both blocks, and at 2048^2 for the probe), and
+   times kernel, plain version and the one PyTorch library call computing
+   the same function: device time per call from torch.profiler, the median
+   of five rounds that take the calls in turn (``ms``, ``plain_ms``,
+   ``library_ms``), and the
+   CUDA-event time of back-to-back calls (``*call_ms``, host launch cost
    included); prints one JSON line per kernel configuration.  Then splits
    an iteration of the perf probe's 2048^2 matmul chain into device time per
    kernel and host wall time.
-4. Drives the main path through its entry points with every launch count
-   reset just before and read just after: the validator CLI
-   ``--component=torch`` and ``--component=perf`` (full size) with a
-   temporary status directory, the bench's matmul sweep leg
-   (``microbench --mxu-sweep``, the route of the k-blocked kernel) and
-   ``entry()``'s forward step.  Checks the status files, the sweep points
-   and the forward loss against the same step on the CPU.
+4. Drives the main path through its entry points, leg by leg, with every
+   launch count reset just before each leg and read just after: the
+   validator CLI ``--component=torch`` and ``--component=perf`` (full size)
+   with a temporary status directory, the bench's matmul sweep leg
+   (``microbench --mxu-sweep``, the route of the k-blocked kernel), its
+   memory sweep leg (``microbench --hbm-sweep``: the triad at 128-1024 MiB
+   per array and 128/256/512 threads) and ``entry()``'s forward step.
+   Checks the status files, the sweep points (every one measured, none
+   failed or wrong) and the forward loss against the same step on the
+   CPU.
 5. Prints the ``kernels`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 """
@@ -93,14 +103,24 @@ def _device_ms(torch, fn, reps: int):
     return us / reps / 1e3 if us > 0 else None
 
 
-def _times(torch, fn, reps: int):
-    """(ms, call_ms, source of ms): device time where the profiler sees the
-    kernels, else the event-timed call."""
-    call_ms = _call_ms(torch, fn, reps)
-    dev_ms = _device_ms(torch, fn, reps)
-    if dev_ms is None:
-        return call_ms, call_ms, "cuda events"
-    return dev_ms, call_ms, "torch.profiler device time"
+def _times(torch, fns, reps: int, rounds: int = 5):
+    """(ms, call_ms, source of ms) for each of fns: ms is the median over
+    rounds of the device time per call, the fns taken in turn within each
+    round so that a drift of the card's clocks falls on all of them alike;
+    the event-timed call where the profiler sees no kernels."""
+    dev = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, times in zip(fns, dev):
+            times.append(_device_ms(torch, fn, reps))
+    out = []
+    for fn, times in zip(fns, dev):
+        call_ms = _call_ms(torch, fn, reps)
+        if None in times:
+            out.append((call_ms, call_ms, "cuda events"))
+        else:
+            out.append((statistics.median(times), call_ms,
+                        f"torch.profiler device time, median of {rounds}"))
+    return out
 
 
 def _bound(nbytes: float, flops: float, peak_flops: float):
@@ -110,26 +130,62 @@ def _bound(nbytes: float, flops: float, peak_flops: float):
 
 def check_sass(_build, lib) -> None:
     """Every instantiation of the matmul kernel in the built library must
-    issue wgmma (HGMMA) and TMA loads (UTMALDG); prints the counts."""
+    issue wgmma (HGMMA) and TMA loads (UTMALDG), and the triad kernel more
+    than one 128-bit evict-first store (STG.E.EF.128, from st.global.cs)
+    per thread and twice as many 128-bit loads; prints the counts."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     ops_counted = ("HGMMA", "UTMALDG", "UTMASTG")
-    counts, current = {}, None
+    counts, triad, current = {}, {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             inst = re.search(r"matmul_bf16_f32_kernelILi(\d+)ELi(\d+)E", fn[1])
-            current = f"block{inst[1]}_kstep{inst[2]}" if inst else None
-            if current:
+            current = (f"block{inst[1]}_kstep{inst[2]}" if inst else
+                       "triad" if "triad_inplace_kernel" in fn[1] else None)
+            if current and current != "triad":
                 counts[current] = dict.fromkeys(ops_counted, 0)
+        elif current == "triad":
+            # every global load and store, by opcode with its qualifiers
+            for op in re.findall(r"\b(?:LDG|STG)\.[\w.]+", line):
+                triad[op] = triad.get(op, 0) + 1
         elif current:
             for op in ops_counted:
                 counts[current][op] += op in line
-    print(json.dumps({"matmul_sass": counts}), flush=True)
+    print(json.dumps({"matmul_sass": counts, "triad_sass": triad}), flush=True)
     _require(len(counts) == 4 and all(c["HGMMA"] and c["UTMALDG"]
                                       for c in counts.values()),
              f"matmul kernel SASS lacks wgmma or TMA: {counts}")
+    # b's loads take the read-only path (LDG.E.128.CONSTANT), a's do not
+    stores = triad.get("STG.E.EF.128", 0)
+    loads = sum(n for op, n in triad.items()
+                if op.startswith("LDG.E.128"))
+    _require(stores >= 2 and loads >= 2 * stores,
+             f"triad kernel SASS lacks its streaming float4 stores or its "
+             f"float4 loads: {triad}")
+
+
+def triad_resources(_build) -> None:
+    """Registers, shared memory and spills of the triad kernel, as
+    ``nvcc -Xptxas -v`` reports them for csrc/triad.cu alone."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(_build.CSRC / "triad.cu"), "-o", os.path.join(tmp, "triad.o")],
+            capture_output=True, text=True, check=True)
+    report = out.stdout + out.stderr
+    lines = [ln.strip() for ln in report.splitlines()
+             if ln.strip() and "Compiling entry" not in ln]
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(s) for s in re.findall(r"(\d+) bytes spill", report)]
+    smem = [int(s) for s in re.findall(r"(\d+) bytes smem", report)]
+    print(json.dumps({"triad_ptxas": {
+        "registers": max(regs, default=None), "spill_bytes": sum(spills),
+        "smem_bytes": max(smem, default=0), "lines": lines}}), flush=True)
+    _require(bool(regs), f"no ptxas report for triad.cu: {report}")
+    # the loads in flight live in registers: a spill would put them in memory
+    _require(not any(spills), f"triad kernel spills: {report}")
 
 
 def _matmul_err(torch, ops, a, b, kt, block) -> float:
@@ -145,7 +201,7 @@ def _matmul_err(torch, ops, a, b, kt, block) -> float:
     return float(diff.max())
 
 
-def check_kernels(torch, ops) -> dict:
+def check_kernels(torch, ops, microbench) -> dict:
     """Kernel vs plain version at the path's shapes; returns name -> record
     for the kernels line."""
     dev = torch.device("cuda")
@@ -156,11 +212,12 @@ def check_kernels(torch, ops) -> dict:
         return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
 
     def record(name, source, replaces, err, tol, kernel, plain, library,
-               reps, nbytes, flops, peak_flops, keep=True):
+               reps, nbytes, flops, peak_flops, keep=True, library_oop=None):
         bound_ms, bound_by = _bound(nbytes, flops, peak_flops)
-        ms, call_ms, how = _times(torch, kernel, reps)
-        plain_ms, plain_call_ms, plain_how = _times(torch, plain, reps)
-        library_ms, library_call_ms, library_how = _times(torch, library, reps)
+        fns = [kernel, plain, library] + ([library_oop] if library_oop else [])
+        times = _times(torch, fns, reps)
+        (ms, call_ms, how), (plain_ms, plain_call_ms, plain_how), \
+            (library_ms, library_call_ms, library_how) = times[:3]
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "max_abs_err": err, "tolerance": tol,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -168,6 +225,10 @@ def check_kernels(torch, ops) -> dict:
                "ms_source": sorted({how, plain_how, library_how}),
                "call_ms": call_ms, "plain_call_ms": plain_call_ms,
                "library_call_ms": library_call_ms}
+        if library_oop is not None:
+            # the same function written into a new tensor, beside the
+            # in-place call
+            rec["library_oop_ms"], rec["library_oop_call_ms"], _ = times[3]
         print(json.dumps({"kernel_check": rec}), flush=True)
         if keep:
             records[name] = rec
@@ -215,25 +276,56 @@ def check_kernels(torch, ops) -> dict:
                2 * n * n * 2 + n * n * 4, 2.0 * n ** 3, PEAK_BF16_FLOPS)
     del a, b
 
-    # kernel 3: the probe's 32768 x 2048 f32 triad, in place
-    shape = (32768, 2048)
-    a = torch.randn(shape, generator=g, device=dev)
-    b = torch.randn(shape, generator=g, device=dev)
-    got = ops.triad_(a.clone(), b, 3.0)
-    want = ops.triad_plain_(a.clone(), b, 3.0)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    _require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
-             "triad_ disagrees with its plain version")
-    del got, want
+    # kernel 3: the triad, in place, at the probe's 32768 x 2048, at the
+    # memory sweep's arrays (128-1024 MiB, 2048 columns) and at ragged sizes
+    # (4 elements; fewer float4s than one block moves; a short last block; a
+    # last block with one float4), at every block size the validator
+    # launches it with.  b must come out bit-equal and the result must be
+    # a's own storage.
+    probe = 32768 * 2048
+    sweep = sorted({mib * 1024 * 1024 // 4 // 2048 * 2048
+                    for mib in microbench.HBM_SWEEP_MIBS} - {probe})
+    sizes = (probe, *sweep, 4, 4000, 3 * 4099 * 4, 600 * 4096 + 8, probe + 4)
+    threads_all = sorted({microbench.HBM_TILING[""][1],
+                          *microbench.HBM_SWEEP_THREADS})
+    checked, err = [], 0.0
+    for numel in sizes:
+        a = torch.randn(numel, generator=g, device=dev)
+        b = torch.randn(numel, generator=g, device=dev)
+        b_before = b.clone()
+        want = ops.triad_plain_(a.clone(), b, 3.0)
+        for threads in threads_all:
+            got = ops.triad_(a.clone(), b, 3.0, threads=threads)
+            torch.cuda.synchronize()
+            point_err = float((got - want).abs().max())
+            checked.append({"numel": numel, "threads": threads,
+                            "max_abs_err": point_err})
+            _require(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+                     f"triad_ disagrees with its plain version at {numel} "
+                     f"elements, {threads} threads")
+            _require(torch.equal(b, b_before),
+                     f"triad_ wrote into b at {numel} elements")
+            if numel == probe:
+                err = max(err, point_err)
+            del got
+        s = a.clone()
+        _require(ops.triad_(s, b, 3.0).data_ptr() == s.data_ptr(),
+                 "triad_ did not return a's own storage")
+        del a, b, b_before, want, s
+    torch.cuda.empty_cache()            # the timed arrays below start afresh
+    print(json.dumps({"triad_shapes": checked}), flush=True)
+
+    a = torch.randn((32768, 2048), generator=g, device=dev)
+    b = torch.randn((32768, 2048), generator=g, device=dev)
     scratch = a.clone()
     record("triad_", "tpu_operator_torch/csrc/triad.cu",
            "tpu_operator/validator/microbench.py:318",
            err, "allclose rtol 1e-6 atol 1e-6",
            lambda: ops.triad_(scratch, b, 0.25),
            lambda: ops.triad_plain_(scratch, b, 0.25),
-           lambda: torch.add(b, a, alpha=0.25), 20,
-           3 * a.numel() * 4, 2.0 * a.numel(), PEAK_F32_FLOPS)
+           lambda: torch.add(b, scratch, alpha=0.25, out=scratch), 20,
+           3 * a.numel() * 4, 2.0 * a.numel(), PEAK_F32_FLOPS,
+           library_oop=lambda: torch.add(b, a, alpha=0.25))
     del a, b, scratch
 
     # kernel 4: the VPU probe's 512 x 512 f32 fma + relu
@@ -302,13 +394,25 @@ def probe_chain_profile(torch, workloads) -> None:
         "kernel_ms_per_iter": kernels}}), flush=True)
 
 
-def drive_main_path(torch, ops) -> dict:
-    """The port's path through its entry points; returns the launch counts."""
+def _sweep(microbench, flag: str) -> dict:
+    """One sweep leg of the bench (``microbench --mxu-sweep`` or
+    ``--hbm-sweep``, two reps a point) as the JSON it prints."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = microbench.main([flag, "--reps=2"])
+    _require(rc == 0, f"microbench {flag} exited {rc}")
+    return json.loads(out.getvalue())
+
+
+def drive_main_path(torch, ops, microbench) -> dict:
+    """The port's path through its entry points, leg by leg, each with the
+    launch counts reset just before it and read just after; returns the
+    counts per leg."""
     from tpu_operator_torch import statusfiles
     from tpu_operator_torch.entry import entry
-    from tpu_operator_torch.validator import microbench
     from tpu_operator_torch.validator.__main__ import main as validator_main
 
+    legs = {}
     ops.reset_launches()
     with tempfile.TemporaryDirectory() as status_dir:
         for component in ("torch", "perf"):
@@ -327,25 +431,41 @@ def drive_main_path(torch, ops) -> dict:
         print(json.dumps({"perf_report": report}), flush=True)
         _require(all(report.get(f"{p}-probe_ok") == "true"
                      for p in ("vpu", "mxu", "hbm")), f"perf-report {report}")
+    legs["components"] = dict(ops.LAUNCHES)
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = microbench.main(["--mxu-sweep", "--reps=2"])
-    sweep = json.loads(out.getvalue())
+    ops.reset_launches()
+    sweep = _sweep(microbench, "--mxu-sweep")
+    legs["mxu_sweep"] = dict(ops.LAUNCHES)
     print(json.dumps({"mxu_sweep": sweep}), flush=True)
-    _require(rc == 0 and sweep["best"] is not None
+    _require(sweep["best"] is not None
              and all("tflops" in r for r in sweep["results"]),
              "mxu sweep had failed points")
 
+    # the bench's memory sweep leg: the only run of every block size at
+    # real array sizes (128-1024 MiB per array)
+    ops.reset_launches()
+    sweep = _sweep(microbench, "--hbm-sweep")
+    legs["hbm_sweep"] = dict(ops.LAUNCHES)
+    print(json.dumps({"hbm_sweep": sweep}), flush=True)
+    grid = {(m, t) for m in microbench.HBM_SWEEP_MIBS
+            for t in microbench.HBM_SWEEP_THREADS}
+    measured = [(r["mib"], r["threads"]) for r in sweep["results"]
+                if "gibs" in r]
+    _require(sorted(measured) == sorted(grid) and "truncated" not in sweep,
+             f"hbm sweep had failed or missing points: {sweep['results']}")
+
+    ops.reset_launches()
     forward, args = entry()
     loss = float(forward(*args))
+    legs["entry"] = dict(ops.LAUNCHES)
     params, x, y = args
     ref = float(forward({k: v.cpu() for k, v in params.items()},
                         x.cpu(), y.cpu()))
     print(json.dumps({"entry_loss": loss, "entry_loss_cpu": ref}), flush=True)
     _require(math.isfinite(loss) and math.isclose(loss, ref, rel_tol=1e-5),
              f"entry() loss {loss} vs CPU {ref}")
-    return dict(ops.LAUNCHES)
+    print(json.dumps({"launches_by_leg": legs}), flush=True)
+    return legs
 
 
 def main() -> int:
@@ -354,7 +474,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
                          "on the card")
-    from tpu_operator_torch.validator import _build, ops, workloads
+    from tpu_operator_torch.validator import _build, microbench, ops, workloads
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -367,16 +487,23 @@ def main() -> int:
                       "library": str(lib.relative_to(_build.BUILD_ROOT.parents[1]))}),
           flush=True)
     check_sass(_build, lib)
+    triad_resources(_build)
 
-    records = check_kernels(torch, ops)
+    records = check_kernels(torch, ops, microbench)
     torch_component_rates(workloads)
     probe_chain_profile(torch, workloads)
-    launches = drive_main_path(torch, ops)
+    legs = drive_main_path(torch, ops, microbench)
+    launches = {name: sum(leg[name] for leg in legs.values())
+                for name in ops.LAUNCHES}
     for name, rec in records.items():
         rec["launches"] = launches[name]
+        rec["launches_by_leg"] = {leg: counts[name]
+                                  for leg, counts in legs.items()}
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     idle = [name for name, count in launches.items() if count == 0]
     _require(not idle, f"kernels never launched on the main path: {idle}")
+    _require(legs["hbm_sweep"]["triad_"] > 0,
+             "the hbm sweep leg never launched the triad kernel")
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

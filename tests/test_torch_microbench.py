@@ -155,6 +155,19 @@ def test_hbm_sweep_reports_grid_and_winner():
         assert {"mib", "threads", "gibs"} <= set(point)
 
 
+def test_hbm_sweep_fails_a_point_with_a_wrong_result(monkeypatch):
+    """A probe that measured a rate but read back a wrong result is a
+    failed point, not a measured one."""
+    wrong = mb.ValidationReport("hbm-probe", False, 0.1,
+                                "2800.0 GiB/s triad, WRONG RESULT",
+                                value=2800.0)
+    monkeypatch.setattr(mb, "hbm_probe", lambda **kw: wrong)
+    out = mb.hbm_sweep(mibs=(1,), threads=(256,), reps=1, device=CPU)
+    assert out["best"] is None
+    assert all("gibs" not in r and "WRONG" in r["error"]
+               for r in out["results"])
+
+
 def test_hbm_sweep_respects_deadline_and_marks_truncation():
     out = mb.hbm_sweep(deadline_s=-1.0, device=CPU)
     assert out["results"] == [] and out["best"] is None

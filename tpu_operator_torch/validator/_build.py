@@ -44,7 +44,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "tot_matmul_bf16_f32": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "tot_triad_inplace": (_P, _P, _F, _LL, _I, _P),
+    # a, b, scale, n, blocks, threads, stream
+    "tot_triad_inplace": (_P, _P, _F, _LL, _I, _I, _P),
     "tot_fma_relu": (_P, _P, _P, _P, _LL, _P),
 }
 

@@ -302,12 +302,12 @@ def hbm_sweep(mibs: Tuple[int, ...] = HBM_SWEEP_MIBS,
             truncated = True
             break
         rep = hbm_probe(mib=mib, threads=thr, reps=reps, device=device)
-        if rep.value is not None and rep.value > 0:
+        if rep.ok and rep.value is not None and rep.value > 0:
             results.append({"mib": mib, "threads": thr,
                             "gibs": round(rep.value, 2)})
         else:
-            # e.g. out of memory on the biggest arrays: a failed point
-            # bounds the usable configuration
+            # e.g. out of memory on the biggest arrays, or a wrong result:
+            # a failed point bounds the usable configuration
             results.append({"mib": mib, "threads": thr,
                             "error": rep.detail[:120]})
     scored = [r for r in results if "gibs" in r]

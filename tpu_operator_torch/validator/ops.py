@@ -143,10 +143,37 @@ def triad_plain_(a: torch.Tensor, b: torch.Tensor,
     return a.mul_(scale).add_(b)
 
 
+# float4s of each array every thread of the triad kernel loads before it
+# stores (csrc/triad.cu's VECTORS; its entry point refuses a grid planned
+# with any other value)
+TRIAD_VECTORS = 4
+
+
+def _triad_plan(numel: int, threads: int) -> int:
+    """Blocks of ``threads`` the triad kernel launches for ``numel`` f32 (a
+    positive multiple of 4): block k moves the float4s from k * threads *
+    TRIAD_VECTORS on, thread t of it the float4s t, t + threads, ... (one per
+    vector); the last block stops at the end of the array."""
+    if numel <= 0 or numel % 4:
+        raise ValueError(f"triad plan: {numel} elements")
+    return -(-(numel // 4) // (threads * TRIAD_VECTORS))
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous operands share memory (a meta tensor holds
+    none)."""
+    if a.is_meta or not a.numel():
+        return False
+    pa, pb = a.data_ptr(), b.data_ptr()
+    nbytes = a.numel() * a.element_size()
+    return pa < pb + nbytes and pb < pa + nbytes
+
+
 def triad_(a: torch.Tensor, b: torch.Tensor, scale: float,
            threads: int = 256) -> torch.Tensor:
     """a = a * scale + b over f32, written IN PLACE into ``a``'s storage
-    (returned).  ``threads`` per block: a multiple of 32 dividing 2048."""
+    (returned); ``b`` must not share memory with ``a``.  ``threads`` per
+    block: a multiple of 32 dividing 2048."""
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError(f"triad_: f32 operands, got {a.dtype}, {b.dtype}")
     if a.shape != b.shape:
@@ -156,12 +183,18 @@ def triad_(a: torch.Tensor, b: torch.Tensor, scale: float,
     if threads % 32 or not 0 < threads <= 1024 or 2048 % threads:
         raise ValueError(f"triad_: {threads} threads per block")
     _check_operands("triad_", a, b)
+    if _overlap(a, b):
+        # the kernel reads b through the read-only path while it writes a
+        raise ValueError("triad_: b shares memory with a")
     if a.device.type == "cpu":
         return triad_plain_(a, b, scale)
     lib = _build.load(a.device)
+    if a.numel() == 0:
+        return a                        # nothing to launch
     with torch.cuda.device(a.device):
         err = lib.tot_triad_inplace(a.data_ptr(), b.data_ptr(), float(scale),
-                                    a.numel(), threads, _stream(a.device))
+                                    a.numel(), _triad_plan(a.numel(), threads),
+                                    threads, _stream(a.device))
     _build.check(lib, err, "triad_")
     LAUNCHES["triad_"] += 1
     return a
