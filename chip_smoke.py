@@ -197,9 +197,25 @@ NVIDIA H100.
    ``/readyz`` 200, the validator chain passing on the card); a steady
    window of 5 s with no write but its Lease renewals and no LIST of a
    watched kind; ``/metrics`` read by the port's parser with every
-   runner family once and ``reconciliation_status`` 1; SIGTERM → exit 0
-   within 15 s, the Lease released, the snapshot flushed; a second
-   process on that snapshot taking the Lease at once with no LIST of a
+   runner family once and ``reconciliation_status`` 1; then three legs
+   with the process the only reconciler, each printing one JSON line:
+   ``runner_remediation`` (the ``remediation`` phase's gang on the card,
+   the watchdog's fault, the node cordoned, drained, revalidated on the
+   card and rejoined, the gang placed again and ``Succeeded`` with one
+   reschedule: the seconds out of service, passes per key from
+   ``/debug/traces``, the runner's writes and reads, the leg's kernel
+   launches), ``runner_serve_stale`` (the stub refuses every request but
+   watch streams past ``--degraded-budget``, shortened to 5 s: the
+   process alive, ``/readyz`` 200 ``degraded: serving-stale``, the
+   ``serving-stale`` and ``parked`` journal entries, no write landing;
+   after it the ``recovered`` entry, a stripped present label repaired,
+   the policy ``ready``, no restart) and ``runner_standby`` (a second
+   process with its own identity and snapshot beside the leader: no
+   write, no reconcile pass, ``/readyz`` 200 ``ok``); SIGTERM → exit 0
+   within 15 s, the Lease released, the snapshot flushed, the standby
+   taking the Lease within 15 s with no LIST of a watched kind and no
+   validator rerun; the standby handed off in turn and a second
+   process on its snapshot taking the Lease at once with no LIST of a
    restored kind, journaling one ``failover`` entry (read through
    ``/debug/explain``), keeping the policy ``ready`` without rerunning
    the chain and restoring a present label another client stripped; an
@@ -251,6 +267,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -4209,9 +4226,8 @@ def remediation(ops, stub, client, reader, kubelet, rec, node_name: str,
               for e in journal.entries("node", "", node_name)
               if e["category"] == "remediation"
               and e["verdict"] == "transition"]
-    _require([s["to"] for s in states] == [
-        "suspect", "cordoned", "draining", "revalidating", "rejoining",
-        "healthy"], f"the node's remediation states: {states}")
+    _require([s["to"] for s in states] == list(REMEDIATION_PATH),
+             f"the node's remediation states: {states}")
     at = {s["to"]: s["at"] + wall0 for s in states}
     gang_line = [{"verdict": e["verdict"], "category": e["category"],
                   "reason": e["reason"], "at": e["wall"] - wall0,
@@ -4237,17 +4253,8 @@ def remediation(ops, stub, client, reader, kubelet, rec, node_name: str,
     chain_records = [{k: r[k] for k in ("container", "attempt", "rc",
                                         "seconds", "stages")}
                      for r in chain.records]
-    out_of_service = {
-        "annotation_to_cordon": at["cordoned"] - t_annotated,
-        "cordon_to_gang_pod_gone": member_gone - at["cordoned"],
-        "revalidating_to_chain_start": chain_start - at["revalidating"],
-        "validator_rerun": chain_end - at["revalidating"],
-        "validator_chain_seconds": chain_end - chain_start,
-        "cordon_to_uncordon": at["healthy"] - at["cordoned"],
-        "uncordon_to_gang_running": second_running - at["healthy"],
-        "node_out_of_service": at["healthy"] - at["cordoned"],
-        "job_out_of_service": second_running - member.deleted_at,
-        "annotation_to_gang_running": second_running - t_annotated}
+    seconds = out_of_service(at, t_annotated, member.deleted_at, member_gone,
+                             (chain_start, chain_end), second_running)
 
     def per_state(rows):
         out = {}
@@ -4258,10 +4265,8 @@ def remediation(ops, stub, client, reader, kubelet, rec, node_name: str,
 
     runs = kubelet.gangs[first_gang:]
     launches = dict(ops.LAUNCHES)            # this process's: none
-    for counts in [g.launches for g in runs] + [r["launches"]
-                                                for r in chain.records]:
-        for name, n in (counts or {}).items():
-            launches[name] += n
+    for name, n in _gang_launches(runs, chain.records).items():
+        launches[name] += n
     goodput = {"fleet_ratio_by_pass": [r["goodput"] for r in passes],
                "node_seconds": rem.goodput.node_seconds(node_name),
                "fleet_ratio": rem.fleet_ratio()}
@@ -4272,7 +4277,7 @@ def remediation(ops, stub, client, reader, kubelet, rec, node_name: str,
         "passes_by_state": per_state(passes),
         "gang_timeline": gang_line,
         "gang_phase_by_pass": [(r["label"], r["gang"]) for r in passes],
-        "out_of_service_seconds": out_of_service,
+        "out_of_service_seconds": seconds,
         "validator_rerun_children": chain_records,
         "writes_by_pass": [(r["label"], r["operator_writes"])
                            for r in passes],
@@ -4657,10 +4662,22 @@ def lint(ops) -> dict:
 # ``python -m tpu_operator_torch`` against a stub apiserver of its own
 # --------------------------------------------------------------------------
 
-RUNNER_TOKENS = ("runner-1", "runner-2")
+RUNNER_TOKENS = ("runner-1", "runner-2", "runner-standby")
 RUNNER_READY_S = 300.0
 RUNNER_STEADY_S = 5.0
 RUNNER_STOP_S = 15.0
+# the runner's serve-stale budget (``--degraded-budget``, 30 s by default)
+# and how long the outage may take to show it
+RUNNER_DEGRADED_BUDGET_S = 5.0
+RUNNER_OUTAGE_DEADLINE_S = 90.0
+# the standby's window beside the leader: longer than one Lease poll
+# (``LEASE_DURATION_S / 3``), and the Lease's duration, within which the
+# standby must take it once the leader is gone
+RUNNER_STANDBY_S = 7.0
+RUNNER_TAKEOVER_S = 15.0
+# the runner's ceiling for ``?n=`` on ``/debug/traces`` and
+# ``/debug/explain``: every trace and journal entry it holds
+DEBUG_N = 10_000
 # the families ``controllers/metrics.py`` adds for the runner, the worker
 # pools' and the process families: each must be on ``/metrics`` once
 RUNNER_FAMILIES = (
@@ -4690,7 +4707,9 @@ class RunnerProcess:
     container (``container``; the namespace for its ``fieldRef``), and
     only what a stub needs besides: ``--api-server`` and the token
     (``TPU_OPERATOR_TOKEN``), ``--snapshot-dir``,
-    ``--snapshot-interval=1``, ``--debug-endpoints``, the health and
+    ``--snapshot-interval=1``, ``--debug-endpoints``,
+    ``--degraded-budget`` shortened to :data:`RUNNER_DEGRADED_BUDGET_S`
+    (the ``runner_serve_stale`` leg's outage outlasts it), the health and
     metrics ports on free ones (after the manifest's, so they win), and
     the pod name (``HOSTNAME``, the Lease's holder); its output in
     ``log``."""
@@ -4705,6 +4724,7 @@ class RunnerProcess:
                                   "manager.yaml") + [
             f"--api-server={api_server}", f"--snapshot-dir={snapshot_dir}",
             "--snapshot-interval=1", "--debug-endpoints",
+            f"--degraded-budget={RUNNER_DEGRADED_BUDGET_S:g}",
             f"--metrics-port={self.metrics_port}",
             f"--health-port={self.health_port}"]
         self.env = container_env(container, namespace)
@@ -4775,20 +4795,31 @@ def runner_metrics(body: str) -> dict:
     status = families["tpu_operator_reconciliation_status"].samples
     _require([v for _, _, v in status] == [1.0],
              f"reconciliation_status {status}")
+    return {"families": len(families),
+            "passes_by_controller": reconcile_passes(families)}
+
+
+def reconcile_passes(families: dict) -> dict:
+    """The reconcile passes a runner's parsed ``/metrics`` page counts, by
+    controller and outcome (``tpu_operator_reconcile_duration_seconds``;
+    none where the family has no sample)."""
     passes = {}
-    for name, labels, value in families[
-            "tpu_operator_reconcile_duration_seconds"].samples:
+    family = families.get("tpu_operator_reconcile_duration_seconds")
+    for name, labels, value in family.samples if family else []:
         if name.endswith("_count"):
             labels = dict(labels)
             passes[f"{labels['controller']}/{labels['outcome']}"] = value
-    return {"families": len(families), "passes_by_controller": passes}
+    return passes
 
 
-def runner_passes_by_key(traces: dict) -> dict:
+def runner_passes_by_key(traces: dict, since: float = 0.0) -> dict:
     """Reconcile passes per work-queue key among a ``/debug/traces``
-    payload's recent traces (each pass's root span carries its key)."""
+    payload's recent traces (each pass's root span carries its key), of
+    the traces that began at wall time ``since`` or later."""
     out = {}
     for trace in traces.get("recent", []):
+        if trace.get("ts", 0.0) < since:
+            continue
         for span in trace["spans"]:
             if not span["parent_id"] and trace["name"].startswith(
                     "reconcile."):
@@ -4821,6 +4852,519 @@ def backfilled_events(reader, log: list, token: str, node: str,
             and e.get("message") in reasons]
 
 
+# --------------------------------------------------------------------------
+# the runner's legs between its /metrics and its handoff: the process as
+# the only reconciler through a remediation with a gang, an apiserver
+# outage and a standby beside it (:data:`RUNNER_LEGS`)
+# --------------------------------------------------------------------------
+
+# a node's remediation states, in the order one repair takes them
+REMEDIATION_PATH = ("suspect", "cordoned", "draining", "revalidating",
+                    "rejoining", "healthy")
+
+
+def remediation_states(entries: list) -> list:
+    """A node's remediation transitions among journal entries (the
+    in-process journal's, or a runner's ``/debug/explain`` payload's),
+    oldest first: ``from``, ``to``, the event and the wall time."""
+    return [{"from": e["condition"]["from"], "to": e["condition"]["to"],
+             "event": e["inputs"].get("event"), "wall": e["wall"]}
+            for e in sorted(entries, key=lambda e: e["wall"])
+            if e["category"] == "remediation"
+            and e["verdict"] == "transition"]
+
+
+def out_of_service(at: dict, annotated: float, evicted: float, gone: float,
+                   chain: tuple, running_again: float) -> dict:
+    """The seconds a remediation kept the node and the gang's job out of
+    service, from wall times: ``at`` each state of
+    :data:`REMEDIATION_PATH` entered, the watchdog's annotation, the gang
+    member evicted and its pod gone, the validator chain's rerun
+    (``(start, end)``) and the gang ``Running`` again."""
+    chain_start, chain_end = chain
+    return {
+        "annotation_to_cordon": at["cordoned"] - annotated,
+        "cordon_to_gang_pod_gone": gone - at["cordoned"],
+        "revalidating_to_chain_start": chain_start - at["revalidating"],
+        "validator_rerun": chain_end - at["revalidating"],
+        "validator_chain_seconds": chain_end - chain_start,
+        "cordon_to_uncordon": at["healthy"] - at["cordoned"],
+        "uncordon_to_gang_running": running_again - at["healthy"],
+        "node_out_of_service": at["healthy"] - at["cordoned"],
+        "job_out_of_service": running_again - evicted,
+        "annotation_to_gang_running": running_again - annotated}
+
+
+def standby_writes(log: list, token: str) -> tuple:
+    """``(Lease writes, other writes)`` of the client that sent ``token``
+    among the stub's ``request_log``: its Lease attempts by verb, and
+    every other write by verb and kind."""
+    lease, other = {}, {}
+    for verb, kinds in _token_writes(log, token).items():
+        for kind, n in kinds.items():
+            if kind == "Lease":
+                lease[verb] = n
+            else:
+                other.setdefault(verb, {})[kind] = n
+    return lease, other
+
+
+def degraded_journal(payload: dict) -> dict:
+    """A ``/debug/explain/operator/<ns>/degraded`` payload's entries by
+    verdict (``serving-stale``, ``parked``, ``recovered``): each verdict's
+    wall times, oldest first, and the keys parked."""
+    entries = payload.get("entries", [])
+    walls = {}
+    for e in entries:
+        walls.setdefault(e["verdict"], []).append(e["wall"])
+    return {"walls": {v: sorted(w) for v, w in sorted(walls.items())},
+            "parked_keys": sorted(e["inputs"].get("key", "")
+                                  for e in entries
+                                  if e["verdict"] == "parked")}
+
+
+def _gang_launches(runs: list, records: list) -> dict:
+    """The kernel launches of gang member runs and validator children."""
+    out = {}
+    for counts in [g.launches for g in runs] + [r["launches"]
+                                                for r in records]:
+        for name, n in (counts or {}).items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def runner_remediation(leg) -> dict:
+    """The ``remediation`` phase's scenario with the runner process
+    (``leg.leader``) as the only reconciler: the policy's remediation knobs
+    shortened (:data:`REMEDIATION_SPEC`) and a one-replica ``TPUWorkload``
+    in the operator's namespace running ``python3 chip_smoke.py
+    --gang-member``, placed by the runner and run by the kubelet thread on
+    the card (NCCL over ``env://``, the hand-written matmul); a steady
+    window with the gang ``Running`` in which the runner writes nothing
+    but its Lease renewals and LISTs no watched kind; the health watchdog
+    stepped by hand over the card's daemon with its device nodes behind
+    removed symlinks writes ``ici-degraded``; the runner takes the node
+    Suspect → Cordoned → Draining (the member evicted and its child
+    reaped before the chain reruns) → Revalidating → Rejoining, uncordons
+    only after the new validator pod is Ready, and places the gang again
+    only after the uncordon; the gang ends ``Succeeded`` with one
+    reschedule.  The timelines come from the runner's journal through
+    ``/debug/explain``.  Prints the seconds out of service, the passes per
+    key (``/debug/traces``), the runner's writes and reads by verb and kind
+    and the leg's launches; returns the launches and the validator records
+    the leg counted."""
+    from tpu_operator_torch import consts, nativelib
+    from tpu_operator_torch.client.resilience import (
+        resilient_incluster_client)
+    from tpu_operator_torch.remediation import remediation_state
+    from tpu_operator_torch.validator import _build_metricsd, healthwatch
+
+    t_leg, wall0 = time.perf_counter(), time.time()
+    stub, reader, kubelet, proc = leg.stub, leg.reader, leg.kubelet, leg.leader
+    node_name, namespace, tmp = leg.node_name, leg.namespace, leg.tmp
+    validator = "tpu-operator-validator"
+    log0 = len(stub.request_log)
+    first_gang = len(kubelet.gangs)
+
+    def node() -> dict:
+        return reader.get("Node", node_name)
+
+    def gang_phase() -> str:
+        cr = reader.get_or_none("TPUWorkload", GANG, namespace) or {}
+        return (cr.get("status") or {}).get("phase", "")
+
+    def gang_pods() -> list:
+        return reader.list("Pod", namespace, label_selector={
+            consts.WORKLOAD_NAME_LABEL: GANG})
+
+    def wait(what: str, done) -> float:
+        def step() -> bool:
+            failed = [(g.name, g.rc, g.lines[-20:]) for g in kubelet.gangs
+                      if g.rc not in (None, 0) and g.deleted_at is None]
+            _require(not failed, f"a gang member failed: {failed}")
+            return done()
+        return leg.wait(what, step, proc, REMEDIATION_DEADLINE_S)
+
+    def explain(kind: str, ns: str, name: str) -> list:
+        return proc.json(f"/debug/explain/{kind}/{ns or '-'}/{name}"
+                         f"?n={DEBUG_N}")["entries"]
+
+    # 1. the gang on the card, placed by the runner
+    port = _free_port()
+    stop_file = os.path.join(tmp, "runner-gang-stop")
+    policy = reader.get("TPUPolicy", "tpu-policy")
+    policy["spec"]["remediation"] = dict(REMEDIATION_SPEC)
+    leg.admin.update(policy)
+    leg.admin.create({"apiVersion": "tpu.operator.dev/v1alpha1",
+                      "kind": "TPUWorkload",
+                      "metadata": {"name": GANG, "namespace": namespace},
+                      "spec": {"replicas": 1, "image": "chip-smoke",
+                               "command": ["python3", "chip_smoke.py"],
+                               "args": ["--gang-member"],
+                               "env": [{"name": "GANG_STOP_FILE",
+                                        "value": stop_file}],
+                               "coordinatorPort": port,
+                               "memberGraceSeconds": GANG_GRACE_S}})
+    place_s = wait("the gang Running", lambda: gang_phase() == "Running")
+    (pod,) = gang_pods()
+    env = {e["name"]: e["value"]
+           for e in pod["spec"]["containers"][0].get("env", [])}
+    want = {"MASTER_ADDR": f"{GANG}-0.{GANG}.{namespace}",
+            "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0"}
+    _require({k: env.get(k) for k in want} == want
+             and not [k for k in env if k.startswith("JAX_")]
+             and pod["spec"]["nodeName"] == node_name,
+             f"the gang pod: {pod['spec']}")
+    member = kubelet.gangs[first_gang]
+    wait("the gang member Ready", lambda: member.ready_at is not None)
+    _require(member.launches.get("matmul_bf16_f32", 0) > 0,
+             f"the gang member: {member.lines[-20:]}")
+
+    # a steady window with the gang Running: Lease renewals, no LIST
+    steady0 = len(stub.request_log)
+    time.sleep(RUNNER_STEADY_S)
+    steady = stub.request_log[steady0:]
+    renewals, writes = standby_writes(steady, proc.token)
+    lists = sorted(set(_reads(steady, proc.token).get("list", {}))
+                   & set(INFORMER_KINDS))
+    _require(not writes and not lists and gang_phase() == "Running",
+             f"the steady window with the gang Running wrote {writes}, "
+             f"LISTed {lists}")
+
+    # 2. the fault: the watchdog over the card's daemon, nodes removed
+    binary = str(_build_metricsd.build())
+    minors = sorted(c["index"] for c in
+                    nativelib.enumerate_chips("/dev", "/sys") or [])
+    devs = os.path.join(tmp, "runner-remediation-dev")
+    os.makedirs(devs)
+
+    def link_nodes() -> None:
+        for m in minors:
+            os.symlink(f"/dev/nvidia{m}", os.path.join(devs, f"nvidia{m}"))
+
+    link_nodes()
+    run_dir = Kubelet.map_path("/run/tpu", kubelet.runs[validator].mounts)
+    daemon = Metricsd(binary, [f"--dev-root={devs}", f"--run-dir={run_dir}"],
+                      os.path.join(tmp, "runner-metricsd.err"))
+    hw_client = resilient_incluster_client(api_server=stub.url,
+                                           token="healthwatch")
+    watch = healthwatch.HealthWatch(
+        f"http://127.0.0.1:{daemon.port}/metrics",
+        os.path.join(tmp, "runner-healthwatch"),
+        policy=healthwatch.HealthPolicy(degrade_after=2, recover_after=2),
+        on_verdict=healthwatch.node_annotation_publisher(lambda: hw_client,
+                                                         node_name))
+
+    def step() -> tuple:
+        """The watchdog's verdict, and whether the Node then carries the
+        annotation."""
+        verdict = watch.step()
+        return verdict, consts.ICI_DEGRADED_ANNOTATION in node()[
+            "metadata"].get("annotations", {})
+
+    try:
+        _require(step() == (False, False), "a healthy node degraded")
+        for m in minors:
+            os.remove(os.path.join(devs, f"nvidia{m}"))
+        step()
+        _require(step() == (True, True),
+                 "the watchdog never annotated the node")
+        t_annotated = time.time()
+        old_validator = kubelet.runs[validator]
+
+        # 3. the runner: detect -> cordon -> drain -> revalidate
+        wait("cordoned", lambda: remediation_state(node()) == "cordoned")
+        taints = node()["spec"].get("taints", [])
+        _require(node()["spec"].get("unschedulable") and any(
+            t.get("key") == consts.REMEDIATION_TAINT_KEY for t in taints),
+            f"the cordon: {node()['spec']}")
+        wait("the gang member evicted and reaped",
+             lambda: not gang_pods() and member.gone_at is not None)
+        _require(member.deleted_at is not None and member.rc is not None,
+                 f"the drain left the gang member: rc {member.rc}")
+        wrote = _token_writes(stub.request_log[log0:], proc.token)
+        _require(wrote.get("evict", {}).get("Pod", 0),
+                 f"the runner evicted no pod; its writes: {wrote}")
+
+        def chain_done() -> bool:
+            new = kubelet.runs.get(validator)
+            return (new is not None and new is not old_validator
+                    and [r["container"] for r in new.records if r["rc"] == 0]
+                    == [c["name"] for c in new.init])
+
+        wait("the validator's chain rerun", lambda: chain_done()
+             and gang_phase() == "Pending" and not gang_pods())
+        _require(remediation_state(node()) == "revalidating"
+                 and node()["spec"].get("unschedulable"),
+                 f"the node left revalidation early: {node()['metadata']}")
+        chain = kubelet.runs[validator]
+        chain_start = min(r["started"] for r in chain.records)
+        chain_end = max(r["started"] + r["seconds"] for r in chain.records)
+        alive = [(g.name, g.exited_at) for g in kubelet.gangs[first_gang:]
+                 if g.exited_at is None or g.exited_at > chain_start]
+        _require(not alive, f"a gang member held the card while the "
+                            f"validator's chain ran: {alive}")
+        held = [e for e in explain("tpuworkload", namespace, GANG)
+                if e["verdict"] == "hold"]
+        _require(held and len(kubelet.gangs) == first_gang + 1,
+                 f"the gang was not held off the cordoned node: {held}")
+
+        # 4. the nodes back: the annotation clears, the node rejoins
+        link_nodes()
+        _require(step()[0] is True, "recovered too early")
+        _require(step() == (False, False),
+                 "the watchdog never cleared the annotation")
+        wait("rejoined", lambda: remediation_state(node()) == ""
+             and not node()["spec"].get("unschedulable"))
+        # 5. the gang back on the node, then told to stop
+        wait("the gang Running again", lambda: gang_phase() == "Running"
+             and len(kubelet.gangs) > first_gang + 1
+             and kubelet.gangs[-1].ready_at is not None)
+        t_running = time.time()
+        second = kubelet.gangs[-1]
+        with open(stop_file, "w"):  # noqa: TPULNT306 - the gang's stop file in the run's temp dir
+            pass
+        wait("the gang Succeeded", lambda: gang_phase() == "Succeeded")
+        status = reader.get("TPUWorkload", GANG, namespace)["status"]
+        _require(status.get("reschedules") == 1 and second.rc == 0,
+                 f"the gang ended {status}, its member rc {second.rc}")
+    finally:
+        daemon.close()
+        hw_client.close()
+
+    # the timelines, from the runner's journal
+    states = remediation_states(explain("node", "", node_name))
+    _require([s["to"] for s in states] == list(REMEDIATION_PATH),
+             f"the node's remediation states: {states}")
+    at = {s["to"]: s["wall"] for s in states}
+    gang_line = [{"verdict": e["verdict"], "category": e["category"],
+                  "reason": e["reason"], "at": e["wall"] - wall0,
+                  "count": e["count"]}
+                 for e in sorted(explain("tpuworkload", namespace, GANG),
+                                 key=lambda e: e["wall"])
+                 if e["category"] in ("placement", "lifecycle")]
+    verdicts = [g["verdict"] for g in gang_line]
+    _require(verdicts.index("degrade") < verdicts.index("teardown")
+             < verdicts.index("hold"), f"the gang's timeline: {verdicts}")
+    val_ready = [t for t, name, phase, ready in kubelet.ready_log
+                 if name == f"{validator}-{node_name}" and ready
+                 and t > t_annotated]
+    _require(val_ready and min(val_ready) < at["rejoining"],
+             f"the node rejoined at {at['rejoining']} before its new "
+             f"validator pod was Ready ({val_ready})")
+    _require(second.seen_at > at["healthy"],
+             f"the gang was placed again at {second.seen_at}, before the "
+             f"uncordon at {at['healthy']}")
+    seconds = out_of_service(at, t_annotated, member.deleted_at,
+                             member.gone_at, (chain_start, chain_end),
+                             t_running)
+    window = stub.request_log[log0:]
+    launches = _gang_launches(kubelet.gangs[first_gang:], chain.records)
+    out = {"place_seconds": place_s,
+           "states": [{"from": s["from"], "to": s["to"], "event": s["event"],
+                       "at": s["wall"] - wall0} for s in states],
+           "gang_timeline": gang_line,
+           "out_of_service_seconds": seconds,
+           "passes_by_key": runner_passes_by_key(
+               proc.json(f"/debug/traces?n={DEBUG_N}"), wall0),
+           "writes": _token_writes(window, proc.token),
+           "reads": _reads(window, proc.token),
+           "steady": {"seconds": RUNNER_STEADY_S, "lease": renewals,
+                      "reads": _reads(steady, proc.token)},
+           "validator_rerun_children": [
+               {k: r[k] for k in ("container", "attempt", "rc", "seconds")}
+               for r in chain.records],
+           "launches": launches,
+           "seconds": time.perf_counter() - t_leg}
+    print(json.dumps({"runner_remediation": out}), flush=True)
+    _require(launches.get("matmul_bf16_f32", 0) > 0,
+             f"the runner's remediation leg launched {launches}")
+    return {"launches": launches, "records": chain.records}
+
+
+def runner_serve_stale(leg) -> dict:
+    """An apiserver partition under the live runner (``leg.leader``): the
+    stub refuses every request but watch streams
+    (``FaultSchedule.start_outage()``, the chaos tier's server-side
+    outage) until the runner has been in serve-stale degraded mode with a
+    key parked, longer than its ``--degraded-budget``; the kubelet
+    thread's DaemonSet play is paused meanwhile, as a real kubelet keeps
+    its pods through an outage.  The process must stay alive, ``/readyz``
+    answer 200 ``degraded: serving-stale``, ``/debug/explain`` hold the
+    ``serving-stale`` and ``parked`` entries, and no write land (the
+    store's resourceVersion does not move).  After ``end_outage()`` the
+    ``recovered`` entry appears, ``/readyz`` answers ``ok``, a present
+    label another client stripped is repaired and the policy is
+    ``ready``, the same process throughout.  Prints the seconds of
+    each."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.client.faults import FaultSchedule
+
+    t_leg = time.perf_counter()
+    stub, proc, kubelet = leg.stub, leg.leader, leg.kubelet
+    pid = proc.proc.pid
+    path = (f"/debug/explain/operator/{leg.namespace}/degraded"
+            f"?n={DEBUG_N}")
+
+    def journal() -> dict:
+        return degraded_journal(proc.json(path))["walls"]
+
+    def wait(what: str, done, deadline_s: float) -> float:
+        return leg.wait(what, done, proc, deadline_s)
+
+    before = {v: len(w) for v, w in journal().items()}
+
+    def new(verdict: str) -> bool:
+        return len(journal().get(verdict, [])) > before.get(verdict, 0)
+
+    kubelet.daemonsets.clear()
+    time.sleep(0.5)          # a DaemonSet step in flight ends first
+    log0, rv0 = len(stub.request_log), stub._max_rv()
+    t0, wall0 = time.perf_counter(), time.time()
+    stub.faults = FaultSchedule(seed=17).start_outage()
+    try:
+        degraded_s = wait("/readyz serving stale", lambda: proc.get(
+            "/readyz") == (200, "degraded: serving-stale\n"),
+            RUNNER_OUTAGE_DEADLINE_S)
+        parked_s = wait("a parked key", lambda: new("serving-stale")
+                        and new("parked"), RUNNER_OUTAGE_DEADLINE_S)
+        outage_s = time.perf_counter() - t0
+        rv1, log1 = stub._max_rv(), len(stub.request_log)
+        refused = len(stub.faults.injected)
+    finally:
+        stub.faults.end_outage()
+    t1 = time.perf_counter()
+    kubelet.daemonsets.set()
+    attempted = _token_writes(stub.request_log[log0:log1], proc.token)
+    _require(rv1 == rv0, f"a write landed during the outage: "
+                         f"resourceVersion {rv0} -> {rv1}")
+    _require(outage_s > RUNNER_DEGRADED_BUDGET_S,
+             f"the outage ({outage_s} s) was shorter than the budget")
+    recovered_s = wait("the recovered entry", lambda: new("recovered"),
+                       RUNNER_OUTAGE_DEADLINE_S)
+    readyz_s = wait("/readyz ok", lambda: proc.get("/readyz") == (200, "ok"),
+                    RUNNER_OUTAGE_DEADLINE_S)
+    node = leg.reader.get("Node", leg.node_name)
+    del node["metadata"]["labels"][consts.TPU_PRESENT_LABEL]
+    leg.admin.update(node)
+    repair_s = wait("the present label", lambda: leg.reader.get(
+        "Node", leg.node_name)["metadata"]["labels"].get(
+        consts.TPU_PRESENT_LABEL) == "true", 60.0)
+    wait("the policy ready", lambda: leg.policy() == (
+        "ready", (1, 1), "true"), 60.0)
+    ready_s = time.perf_counter() - t1
+    _require(proc.proc.pid == pid and proc.proc.poll() is None,
+             "the runner restarted through the outage")
+    entries = degraded_journal(proc.json(path))
+    out = {"outage_seconds": outage_s, "to_serving_stale": degraded_s,
+           "to_parked": parked_s, "refused_requests": refused,
+           "runner_writes_refused": attempted,
+           "parked_keys": entries["parked_keys"],
+           "after_outage": {"recovered": recovered_s, "readyz_ok": readyz_s},
+           "label_repair_seconds": repair_s,
+           "policy_ready_after_outage_seconds": ready_s,
+           "journal_since_outage": {
+               v: [w - wall0 for w in walls if w >= wall0]
+               for v, walls in entries["walls"].items()},
+           "seconds": time.perf_counter() - t_leg}
+    print(json.dumps({"runner_serve_stale": out}), flush=True)
+    return out
+
+
+def runner_standby(leg) -> dict:
+    """A second runner process beside the live leader (``leg.leader``):
+    the same argv and env, a distinct ``HOSTNAME`` and token, its own
+    snapshot dir.  While the leader holds the Lease the standby writes
+    nothing (its Lease attempts are reads of a Lease held and fresh), runs
+    no reconcile pass (its ``/metrics`` counts none) and answers
+    ``/readyz`` as the JAX runner's standby does: 200 ``ok`` once its
+    cache has synced, since ``main`` marks the health server ready before
+    the scheduler stands by and the probe gates on the informer and
+    degraded mode alone (``tpu_operator/cmd/operator.py``,
+    ``HealthServer``).  Prints what it read and wrote; the leader's
+    SIGTERM that follows is the runner phase's handoff
+    (:func:`standby_takeover`)."""
+    from tpu_operator_torch.cmd.operator import LEASE_NAME
+    from tpu_operator_torch.exposition import parse
+
+    t_leg = time.perf_counter()
+    stub = leg.stub
+    standby = RunnerProcess(leg.container, leg.namespace, stub.url,
+                            RUNNER_TOKENS[2], leg.standby_snapshot,
+                            os.path.join(leg.tmp, "runner-standby.log"))
+    leg.procs.append(standby)
+    leg.standby = standby
+    log0 = len(stub.request_log)
+    ready_s = leg.wait("the standby's /readyz", lambda: standby.get(
+        "/readyz")[0] == 200, standby, 60.0)
+    time.sleep(RUNNER_STANDBY_S)
+    readyz = standby.get("/readyz")
+    holder = leg.reader.get("Lease", LEASE_NAME,
+                            leg.namespace)["spec"]["holderIdentity"]
+    window = stub.request_log[log0:]
+    lease, writes = standby_writes(window, standby.token)
+    code, body = standby.get("/metrics", metrics=True)
+    passes = reconcile_passes(parse(body)) if code == 200 else None
+    out = {"readyz": readyz, "readyz_seconds": ready_s,
+           "lease_holder": holder, "lease_writes": lease, "writes": writes,
+           "reads": _reads(window, standby.token), "passes": passes,
+           "seconds": time.perf_counter() - t_leg}
+    print(json.dumps({"runner_standby": out}), flush=True)
+    _require(holder == leg.leader.identity,
+             f"the standby took the Lease from a live leader: {holder}")
+    _require(not writes and not lease,
+             f"the standby wrote beside the live leader: {out}")
+    _require(passes is not None and not any(passes.values()),
+             f"the standby ran reconcile passes: {passes}")
+    _require(readyz == (200, "ok"), f"the standby's /readyz: {readyz}")
+    return out
+
+
+def standby_takeover(leg, t_term: float, val, records0: int) -> dict:
+    """After the leader's SIGTERM (wall time ``t_term``): the standby must
+    hold the Lease within :data:`RUNNER_TAKEOVER_S`, LIST no watched kind
+    (its cache is current) and keep the policy ``ready`` without a
+    validator rerun (``val``, ``records0``: the validator's run and its
+    record count before)."""
+    from tpu_operator_torch.cmd.operator import LEASE_NAME
+
+    standby, stub = leg.standby, leg.stub
+    log0 = len(stub.request_log)
+    take_s = leg.wait("the standby takes the Lease", lambda: leg.reader.get(
+        "Lease", LEASE_NAME, leg.namespace)["spec"]["holderIdentity"]
+        == standby.identity, standby, RUNNER_TAKEOVER_S)
+    since_sigterm = time.time() - t_term
+    time.sleep(RUNNER_STEADY_S)
+    window = stub.request_log[log0:]
+    lists = {k: n for k, n in _reads(window, standby.token).get(
+        "list", {}).items() if k in INFORMER_KINDS}
+    out = {"lease_seconds": take_s,
+           "lease_seconds_since_sigterm": since_sigterm,
+           "lists_of_watched_kinds": lists,
+           "writes": _token_writes(window, standby.token),
+           "policy": leg.policy(),
+           "validator_records_after": len(val.records) - records0}
+    print(json.dumps({"runner_standby_takeover": out}), flush=True)
+    _require(not lists, f"the standby LISTed watched kinds: {lists}")
+    _require(out["policy"] == ("ready", (1, 1), "true")
+             and leg.kubelet.runs["tpu-operator-validator"] is val
+             and len(val.records) == records0,
+             f"the takeover reran the validator chain: {out}")
+    return out
+
+
+# the legs, in the order :func:`runner` drives them: the outage before the
+# standby, since a Lease the partitioned leader cannot renew lapses and a
+# standby beside it could take it when the apiserver returns
+RUNNER_LEGS = (runner_remediation, runner_serve_stale, runner_standby)
+
+
+def runner_legs(leg) -> dict:
+    """Each of :data:`RUNNER_LEGS` in turn on the runner phase's state
+    ``leg``; their results by name."""
+    return {fn.__name__: fn(leg) for fn in RUNNER_LEGS}
+
+
 def runner(torch, ops) -> dict:
     """The operator process on the card's node as its packaged Deployment
     runs it: the command, args and env of ``manager.yaml``'s container
@@ -4836,8 +5380,14 @@ def runner(torch, ops) -> dict:
     ``/readyz`` 200) with the validator chain passing on the card; then
     hold a steady window with no write but its Lease renewals and no LIST
     of a watched kind; serve ``/metrics`` as :func:`runner_metrics`
-    requires; exit 0 on SIGTERM within 15 s, its Lease released and its
-    snapshot flushed.  A second process on that snapshot with a new token
+    requires; then carry :data:`RUNNER_LEGS` as the only reconciler — a
+    remediation with a gang (:func:`runner_remediation`), an apiserver
+    outage (:func:`runner_serve_stale`) and a standby process beside it
+    (:func:`runner_standby`); exit 0 on SIGTERM within 15 s, its Lease
+    released and its snapshot flushed, the standby taking the Lease within
+    the Lease's duration with no LIST and no validator rerun
+    (:func:`standby_takeover`).  The standby handed off by SIGTERM in
+    turn, a second process on its snapshot with a new token
     must take the Lease at once, LIST no restored kind, journal one
     ``failover`` entry, keep the policy ``ready`` without rerunning the
     validator chain, and restore a present label another client stripped;
@@ -4846,7 +5396,8 @@ def runner(torch, ops) -> dict:
     (the Event backfill).  ``tpu-status`` renders the policy ``ready`` and
     the slice 1/1; ``cleanup``, the chart's pre-delete hook run as a child
     from its argv, deletes the CRs; SIGTERM, exit 0.  Returns the
-    validator children's launch counts."""
+    validator children's launch counts, and apart from them the
+    remediation leg's (its gang members' and its rerun chain's)."""
     from tpu_operator_torch import consts
     from tpu_operator_torch.api.crd import all_crds
     from tpu_operator_torch.client.resilience import (
@@ -4991,7 +5542,19 @@ def runner(torch, ops) -> dict:
         out["metrics"] = runner_metrics(body)
         print(json.dumps({"runner_metrics": out["metrics"]}), flush=True)
 
-        # 4. the graceful handoff
+        # the legs: a remediation with a gang, an apiserver outage, a
+        # standby beside the leader — the runner the only reconciler
+        leg = types.SimpleNamespace(
+            stub=stub, reader=reader, admin=clients["admin"],
+            kubelet=kubelet, leader=first, container=container,
+            namespace=namespace, node_name=node_name, tmp=tmp,
+            policy=policy, wait=wait, procs=procs, standby=None,
+            standby_snapshot=os.path.join(tmp, "standby-snapshot"))
+        out["legs"] = runner_legs(leg)
+        val = kubelet.runs["tpu-operator-validator"]   # the rerun chain's
+
+        # 4. the graceful handoff, to the standby
+        records0 = len(val.records)
         t_term = time.time()
         rc, stop_s = first.stop()
         held = lease()
@@ -5004,17 +5567,25 @@ def runner(torch, ops) -> dict:
         print(json.dumps({"runner_handoff": out["handoff"]}), flush=True)
         _require(rc == 0, f"SIGTERM: rc {rc} after {stop_s} s: "
                           f"{first.tail()}")
-        _require(held["holderIdentity"] == first.identity
-                 and held["leaseDurationSeconds"] == 0,
+        # released, or already taken by the standby (which cannot take a
+        # Lease held and fresh)
+        _require((held["holderIdentity"] == first.identity
+                  and held["leaseDurationSeconds"] == 0)
+                 or held["holderIdentity"] == leg.standby.identity,
                  f"the Lease was not released: {held}")
         _require(saved is not None and saved["saved_at"] >= t_term,
                  "the snapshot was not flushed on SIGTERM")
+        out["takeover"] = standby_takeover(leg, t_term, val, records0)
 
-        # 5. a restart from that snapshot
+        # 5. a restart from the snapshot of the process that then led,
+        # the standby, handed off by SIGTERM in turn
+        rc, stop_s = leg.standby.stop()
+        _require(rc == 0, f"the standby's SIGTERM: rc {rc} after {stop_s} "
+                          f"s: {leg.standby.tail()}")
         restart_log = len(stub.request_log)
         records0 = len(val.records)
         second = RunnerProcess(container, namespace, stub.url,
-                               RUNNER_TOKENS[1], snap,
+                               RUNNER_TOKENS[1], leg.standby_snapshot,
                                os.path.join(tmp, "runner-2.log"))
         procs.append(second)
         lease_s = wait("the Lease", lambda: lease()["holderIdentity"]
@@ -5115,20 +5686,27 @@ def runner(torch, ops) -> dict:
             c.close()
         stub.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
+    # the remediation leg's launches (its gang members' and the rerun
+    # chain's) apart from the phase's other validator children
+    counted = {id(r) for r in out["legs"]["runner_remediation"]["records"]}
     launches = {name: 0 for name in ops.LAUNCHES}
     for r in init_records:
         for name, n in (r["launches"] or {}).items():
-            launches[name] += n
+            launches[name] += 0 if id(r) in counted else n
     for name, n in ops.LAUNCHES.items():
         launches[name] += n          # this process: none
+    remediated = {name: out["legs"]["runner_remediation"]["launches"].get(
+        name, 0) for name in ops.LAUNCHES}
     _require(kubelet.error is None, f"the kubelet failed: {kubelet.error!r}")
     _require(all(e["rc"] is not None for e in exits),
              f"a container outlived the phase: {exits}")
     _require(launches["matmul_bf16_f32"] > 0,
              f"the runner's validator children launched {launches}")
     print(json.dumps({"runner_seconds": time.perf_counter() - t_phase,
-                      "runner_launches": launches}), flush=True)
-    return launches
+                      "runner_launches": launches,
+                      "runner_remediation_launches": remediated}),
+          flush=True)
+    return launches, remediated
 
 
 def drive_main_path(torch, ops, microbench) -> dict:
@@ -5149,7 +5727,7 @@ def drive_main_path(torch, ops, microbench) -> dict:
                                                                       ops)
     legs["packaging"] = packaging(ops)
     legs["lint"] = lint(ops)
-    legs["runner"] = runner(torch, ops)
+    legs["runner"], legs["runner_remediation"] = runner(torch, ops)
 
     ops.reset_launches()
     sweep = _sweep(microbench, "--mxu-sweep")
@@ -5368,6 +5946,9 @@ def main_path(torch, _build, ops, microbench, workloads) -> list:
              "the remediation phase never launched the matmul kernel")
     _require(legs["runner"]["matmul_bf16_f32"] > 0,
              "the runner phase never launched the matmul kernel")
+    _require(legs["runner_remediation"]["matmul_bf16_f32"] > 0,
+             "the runner's remediation leg never launched the matmul "
+             "kernel")
     return list(records.values())
 
 

@@ -242,8 +242,13 @@ class DegradedMode:
     and the work re-parks until the next re-probe window."""
 
     def __init__(self, client, namespace: str, budget_s: float = 30.0,
-                 clock=time.monotonic):
+                 clock=time.monotonic, lease_client=None):
         self.client = client
+        # the leader election's own fail-fast client: a leader cut off
+        # from the apiserver makes no call but its Lease renewals (the
+        # scheduler stands by on a failed renewal), so its breaker is
+        # the one that opens under a full outage
+        self.lease_client = lease_client
         self.namespace = namespace
         self.budget_s = max(0.0, float(budget_s))
         self.clock = clock
@@ -255,7 +260,8 @@ class DegradedMode:
 
     def _breaker_open(self) -> bool:
         from ..client.resilience import BREAKER_OPEN
-        return getattr(self.client, "breaker_state", None) == BREAKER_OPEN
+        return any(getattr(c, "breaker_state", None) == BREAKER_OPEN
+                   for c in (self.client, self.lease_client))
 
     def poll(self) -> bool:
         """Advance the state machine (pure memory, called once per
@@ -984,8 +990,9 @@ class OperatorRunner:
         # degraded-mode survival: a breaker held open past the budget
         # flips the runner into explicit ServeStale instead of letting
         # the partition read as dead (DegradedMode docstring)
-        self.degraded = DegradedMode(client, namespace,
-                                     budget_s=degraded_budget_s)
+        self.degraded = DegradedMode(
+            client, namespace, budget_s=degraded_budget_s,
+            lease_client=lease_client if leader_election else None)
         # telemetry sweep cadence + badput-delta memory (the sweep
         # samples per-category rate as the delta of the journal's
         # accrual integrals between sweeps)
@@ -1248,12 +1255,17 @@ class OperatorRunner:
             # as last-seen, or the next genuine heartbeat would diff
             # against a pre-write signature and read as a real change
             name = obj.get("metadata", {}).get("name", "")
+            seen = None
             with self._sched_lock:
                 if kind == "Node":
+                    seen = self._node_sigs.get(name)
                     self._node_sigs[name] = self._node_sig(obj)
                 elif kind == "DaemonSet":
                     ns = obj.get("metadata", {}).get("namespace", "")
                     self._ds_sigs[(ns, name)] = self._ds_sig(obj)
+            if seen is not None and seen[2].get("unschedulable") \
+                    and not obj.get("spec", {}).get("unschedulable"):
+                self._wake_gangs(verb, obj)
             return
         if kind == "DaemonSet" and not self._route_daemonset(verb, obj):
             return
@@ -1353,6 +1365,19 @@ class OperatorRunner:
         if woke:
             if hint is not None and not hint.full:
                 self._kick_prerender()
+            self._wake_set()
+
+    def _wake_gangs(self, verb: str, obj: dict) -> None:
+        """The echo of our own uncordon (the remediation or upgrade key
+        made a Node schedulable again) still wakes the workload keys: the
+        key that wrote it reconciled against it, but a gang held off the
+        node would otherwise wait out its hold requeue
+        (``REQUEUE_HOLD_SECONDS``).  A cordon's echo wakes nothing, as
+        every other own write's: the drain moves a bound gang."""
+        woke = False
+        for key in self._workload_wake_keys("Node", obj):
+            woke |= self.queue.mark_due(key, stamp=obs.watch_stamp(verb, obj))
+        if woke:
             self._wake_set()
 
     def _on_relist(self, kind: str) -> None:
@@ -1459,6 +1484,18 @@ class OperatorRunner:
         else:
             self.queue.set_waits(rec, ())
         self.queue.commit(rec, gen, now + requeue)
+
+    def _park_if_partitioned(self) -> None:
+        """A leader whose Lease renewal failed on the wire (it still holds
+        the Lease: only a refused write or a peer's hold takes it away)
+        stands by without acting, as a lost leader does; past the
+        degraded budget it is in serve-stale degraded mode, and each due
+        key is parked with its journaled hold, as the dispatch loop parks
+        it when the main client's breaker is the one open."""
+        if not self.elector.is_leader or not self.degraded.poll():
+            return
+        for key in self.queue.due(time.monotonic()):
+            self.degraded.park(key)
 
     def _note_leadership(self) -> None:
         """Arm the failover journal: the elector just acquired the lease
@@ -1992,6 +2029,7 @@ class OperatorRunner:
         while not self.stop.is_set():
             if self.elector is not None and not self.elector.try_acquire():
                 log.debug("not leader; standing by")
+                self._park_if_partitioned()
                 self.stop.wait(LEASE_DURATION_S / 3)
                 continue
             self._note_leadership()
@@ -2074,6 +2112,7 @@ class OperatorRunner:
                     # (shared with cmd tools): offload it through the
                     # sanctioned helper so it can never block the loop
                     log.debug("not leader; standing by")
+                    self._park_if_partitioned()
                     await _stoppable_sleep(LEASE_DURATION_S / 3)
                     continue
                 self._note_leadership()
