@@ -25,9 +25,19 @@ NVIDIA H100.
    of five rounds that take the calls in turn (``ms``, ``plain_ms``,
    ``library_ms``), and the
    CUDA-event time of back-to-back calls (``*call_ms``, host launch cost
-   included); prints one JSON line per kernel configuration.  Then splits
-   an iteration of the perf probe's 2048^2 matmul chain into device time per
-   kernel and host wall time.
+   included); prints one JSON line per kernel configuration.  Then the
+   torch component's rates with the length each escalation stopped at;
+   the ``graph_chains`` phase (each chain the validator replays as CUDA
+   graphs — the burn-in's at 2048^2, the perf probe's triad, the memory
+   stress's — at 37 steps and at its probe's long chain must equal the
+   same steps launched one by one bit for bit, with the same launch
+   counts); the perf probe's 2048^2 matmul chain split into device time
+   per kernel, wall time and idle share, replayed and launched step by
+   step, with the rate a card at half its tensor-core speed would read;
+   and the ``perf_gate`` phase: the perf component in this process must
+   pass both floors, write them into ``perf-report`` with ``enforced:
+   true`` and the tensor-core floor above that half-rate reading, and
+   both probes must fail a floor raised above what the card read.
 4. Drives the main path through its entry points, leg by leg, with every
    launch count reset just before each leg and read just after.  First the
    ``node_chain`` phase on the live host (``--host-root=/``): discovery
@@ -568,48 +578,217 @@ def check_kernels(torch, ops, microbench) -> dict:
 def torch_component_rates(workloads) -> None:
     """The torch component's workloads at its sizes (burn-in 512^2 x 4
     iterations, memory stress 64 MiB x 2): their reported marginal rates
-    (the matmul kernel's own time at 512^2 is a kernel_check line)."""
+    and the length ``hi`` of the long chain each one's escalation stopped
+    at (the matmul kernel's own time at 512^2 is a kernel_check line)."""
     burn = workloads.matmul_burn_in(size=512, iters=4)
     _require(burn.ok, f"burn-in failed: {burn.detail}")
     stress = workloads.hbm_stress(mib=64, iters=2)
     _require(stress.ok, f"memory stress failed: {stress.detail}")
+    hi = {name: int(re.search(r" x (\d+)$", rep.detail)[1])
+          for name, rep in (("burn_in", burn), ("hbm_stress", stress))}
     print(json.dumps({"torch_component": {
         "burn_in_tflops": burn.value, "burn_in_detail": burn.detail,
-        "burn_in_s": burn.duration_s,
+        "burn_in_s": burn.duration_s, "burn_in_hi": hi["burn_in"],
         "hbm_stress_gibs": stress.value, "hbm_stress_detail": stress.detail,
-        "hbm_stress_s": stress.duration_s}}), flush=True)
+        "hbm_stress_s": stress.duration_s,
+        "hbm_stress_hi": hi["hbm_stress"]}}), flush=True)
 
 
-def probe_chain_profile(torch, workloads) -> None:
-    """Where an iteration of the perf probe's matmul chain goes (2048^2,
-    block 128, kt=0: matmul, then abs, max, add, div and cast to bf16):
-    device time per kernel from torch.profiler, beside the host's wall time
-    per iteration of the same chain run without the profiler."""
+def graph_chains(torch, ops, workloads) -> None:
+    """Each chain the validator replays as CUDA graphs, held against the
+    same steps launched one by one: the burn-in's at the probe's 2048^2
+    (block 128, kt=0), the perf probe's triad at 32768 x 2048 (256
+    threads) and the memory stress's at 128 MiB, each at 37 steps (two
+    units and a remainder) and at its probe's long chain (512, 64, 128).
+    The replayed state must equal the eager one bit for bit, at the run
+    that captures and at one that only replays; the launch counts of the
+    replaying run must equal the eager run's (the capturing run adds one
+    counted warm-up step)."""
+    from tpu_operator_torch.validator.graphs import ChainGraphs
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, w = (torch.randn((2048, 2048), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    a, b = (torch.randn((32768, 2048), generator=g, device=dev)
+            for _ in range(2))
+    sb, sc = (torch.randn(128 * 1024 * 1024 // 4, generator=g, device=dev)
+              for _ in range(2))
+    chains = (
+        ("burn_in", lambda acc: workloads._burn_in_step(acc, w, 128, 0), x,
+         512),
+        ("probe_triad", lambda acc: ops.triad_(acc, b, 0.25, threads=256), a,
+         64),
+        ("stress_triad", lambda acc: workloads._triad_step(acc, sc), sb, 128),
+    )
+    out = []
+    for name, step, init, wide in chains:
+        for n in (37, wide):
+            ops.reset_launches()
+            want = init.clone()
+            for _ in range(n):
+                want = step(want)
+            torch.cuda.synchronize()
+            eager = dict(ops.LAUNCHES)
+            runs = []
+            with ChainGraphs() as graphs:
+                for _ in range(2):
+                    ops.reset_launches()
+                    got = graphs.run(name, step, init, n)
+                    torch.cuda.synchronize()
+                    runs.append((bool(torch.equal(got, want)),
+                                 dict(ops.LAUNCHES)))
+                    del got
+                replays, rest = graphs.plan(n)
+            del want
+            rec = {"chain": name, "n": n, "replays": replays, "rest": rest,
+                   "bit_equal": [eq for eq, _ in runs],
+                   "launches_eager": eager,
+                   "launches_capturing_run": runs[0][1],
+                   "launches_replaying_run": runs[1][1]}
+            out.append(rec)
+            _require(all(rec["bit_equal"]),
+                     f"replayed {name} x {n} differs from the eager chain")
+            _require(runs[1][1] == eager,
+                     f"replayed {name} x {n} counted {runs[1][1]}, the eager "
+                     f"chain {eager}")
+    del x, w, a, b, sb, sc
+    torch.cuda.empty_cache()
+    print(json.dumps({"graph_chains": out}), flush=True)
+
+
+def _chain_split(torch, run, iters: int) -> dict:
+    """For a chain ``run(n)`` of n steps ending in a fetched scalar: wall ms
+    per step at ``iters`` steps and at 8x as many (best of five, after
+    one untimed call each), the marginal wall ms per step between the two
+    (what the probe's two-point rate reads: a call's fixed cost cancels),
+    the device's kernel ms per step at ``iters`` from torch.profiler, the
+    kernels by name, and the device's idle share of each wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    a, b = (torch.randn((2048, 2048), generator=g, device="cuda",
-                        dtype=torch.bfloat16) for _ in range(2))
-    iters = 16
-    float(workloads._burn_in_fn(a, b, iters))
-    wall = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        float(workloads._burn_in_fn(a, b, iters))
-        wall.append((time.perf_counter() - t0) * 1e3 / iters)
+    def wall(n: int) -> float:
+        float(run(n))
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            float(run(n))
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    short, long = wall(iters), wall(8 * iters)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        float(workloads._burn_in_fn(a, b, iters))
+        float(run(iters))
     kernels = {e.key: e.self_device_time_total / iters / 1e3
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0}
     device_ms = sum(kernels.values())
-    print(json.dumps({"probe_chain_2048": {
-        "iters": iters, "wall_ms_per_iter": min(wall),
-        "device_ms_per_iter": device_ms,
-        "device_idle_share": 1.0 - device_ms / min(wall),
-        "kernel_ms_per_iter": kernels}}), flush=True)
+    marginal = (long - short) / (7 * iters)
+    return {"wall_ms_per_iter": short / iters,
+            "device_ms_per_iter": device_ms,
+            "device_idle_share": 1.0 - device_ms * iters / short,
+            "marginal_wall_ms_per_iter": marginal,
+            "marginal_idle_share": 1.0 - device_ms / marginal,
+            "kernel_ms_per_iter": kernels}
+
+
+def probe_chain_profile(torch, workloads) -> float:
+    """Where a step of the perf probe's matmul chain goes (2048^2, block
+    128, kt=0: matmul, then abs, max, add, div and cast to bf16) at the
+    probe's long chain (512 steps), replayed as CUDA graphs as the probe
+    runs it and launched step by step: for each, wall ms per step, device
+    ms per step from torch.profiler and the device's idle share, per call
+    and between 512 and 4096 steps.  From the eager chain's kernels, the
+    chain's device rate and the rate it would read with the matmul at
+    half speed (the matmul's time doubled, the renormalisation's kept):
+    the tensor-core floor must lie above the latter.  Returns that
+    half-rate reading in TFLOP/s."""
+    from tpu_operator_torch.validator.graphs import ChainGraphs
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.randn((2048, 2048), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    iters = 512
+
+    def eager(n: int):
+        acc = a
+        for _ in range(n):
+            acc = workloads._burn_in_step(acc, b, 128, 0)
+        return acc.float().sum()
+
+    split = {"eager": _chain_split(torch, eager, iters)}
+    with ChainGraphs() as graphs:
+        split["replayed"] = _chain_split(
+            torch, lambda n: workloads._burn_in_fn(a, b, n, block=128,
+                                                   graphs=graphs), iters)
+    kernels = split["eager"]["kernel_ms_per_iter"]
+    matmul_ms = sum(ms for name, ms in kernels.items() if "matmul" in name)
+    other_ms = sum(kernels.values()) - matmul_ms
+    flop = 2.0 * 2048 ** 3
+    rates = {"matmul_ms_per_iter": matmul_ms,
+             "renormalise_ms_per_iter": other_ms,
+             "device_rate_tflops": flop / (matmul_ms + other_ms) / 1e9,
+             "half_rate_tflops": flop / (2 * matmul_ms + other_ms) / 1e9}
+    print(json.dumps({"probe_chain_2048": {"iters": iters, **split,
+                                           **rates}}), flush=True)
+    _require(matmul_ms > 0 and other_ms > 0,
+             f"the eager chain's kernels are not all seen: {kernels}")
+    _require(split["replayed"]["device_ms_per_iter"] > 0,
+             "the profiler saw no kernel of the replayed chain")
+    return rates["half_rate_tflops"]
+
+
+def perf_gate(torch, microbench, half_rate: float) -> None:
+    """The perf component in this process, gate enforced, as the validator
+    pod's init container runs it: both probes must pass their floors on
+    the card, ``perf-report`` must carry the readings, both floors and
+    ``enforced: true``, ``perf-ready`` must be written, and the
+    tensor-core floor must lie above the half-rate reading.  Then both
+    probes with their fractions raised above what the card read must
+    report not ok, naming the floor."""
+    from tpu_operator_torch import statusfiles
+    from tpu_operator_torch.validator.components import Context, run_component
+
+    gen = microbench.chip_generation()
+    _require(gen in microbench.CHIP_PEAKS, f"no floors for this card: {gen!r}")
+    with tempfile.TemporaryDirectory() as status:
+        t0 = time.perf_counter()
+        run_component("perf", Context(status_dir=status, device="cuda"))
+        seconds = time.perf_counter() - t0
+        report = statusfiles.read_status("perf-report", status) or {}
+        ready = os.path.exists(os.path.join(status, "perf-ready"))
+    print(json.dumps({"perf_report": {**report,
+                                      "mxu_half_rate_tflops": half_rate,
+                                      "seconds": seconds,
+                                      "perf_ready": ready}}), flush=True)
+    _require(ready and report.get("enforced") == "true"
+             and all(report.get(f"{p}-probe_ok") == "true"
+                     for p in ("vpu", "mxu", "hbm")),
+             f"the perf gate failed a healthy card: {report}")
+    floors = {k: float(report[f"{k}_floor"]) for k in ("mxu_tflops",
+                                                       "hbm_gibs")}
+    _require(floors["mxu_tflops"] > half_rate,
+             f"the tensor-core floor {floors['mxu_tflops']} does not lie "
+             f"above the half-rate reading {half_rate}")
+
+    tflops, gbs = microbench.CHIP_PEAKS[gen]
+    saved = microbench.MXU_GATE_FRACTION, microbench.HBM_GATE_FRACTION
+    microbench.MXU_GATE_FRACTION = 1.5 * float(report["mxu_tflops"]) / tflops
+    microbench.HBM_GATE_FRACTION = (1.5 * float(report["hbm_gibs"])
+                                    * 1.073741824 / gbs)
+    try:
+        forced = [microbench.mxu_probe(enforce=True),
+                  microbench.hbm_probe(enforce=True)]
+    finally:
+        microbench.MXU_GATE_FRACTION, microbench.HBM_GATE_FRACTION = saved
+    print(json.dumps({"perf_gate_forced": [r.to_dict() for r in forced]}),
+          flush=True)
+    _require(all(not r.ok and r.floor and r.value < r.floor
+                 and f"floor {r.floor:.0f} [{gen}]" in r.detail
+                 for r in forced),
+             f"a probe passed a floor above its reading: "
+             f"{[r.detail for r in forced]}")
 
 
 def _sweep(microbench, flag: str) -> dict:
@@ -2663,6 +2842,11 @@ class _PodRun:
                    if launches else None,
                    "stdout": out.strip()[-400:],
                    "stderr": err.strip()[-1500:] if proc.returncode else ""}
+            # the perf child's readings and floors, from its OK line
+            rates = re.findall(r"\b((?:mxu_tflops|hbm_gibs)(?:_floor)?|"
+                               r"enforced)=(\S+)", out)
+            if rates:
+                rec["perf"] = dict(rates)
             self.records.append(rec)
             print(json.dumps({"operator_container": rec}), flush=True)
             if proc.returncode == 0:
@@ -3183,9 +3367,12 @@ def validated_node(torch, host, status_dir: str, init: list) -> dict:
     _require(ready["torch"].get("devices") == str(torch.cuda.device_count()),
              f"torch-ready missing or wrong: {ready['torch']}")
     report = statusfiles.read_status("perf-report", status_dir) or {}
-    print(json.dumps({"perf_report": report}), flush=True)
+    print(json.dumps({"perf_report_validator_pod": report}), flush=True)
     _require(all(report.get(f"{p}-probe_ok") == "true"
-                 for p in ("vpu", "mxu", "hbm")), f"perf-report {report}")
+                 for p in ("vpu", "mxu", "hbm"))
+             and report.get("enforced") == "true"
+             and {"mxu_tflops_floor", "hbm_gibs_floor"} <= set(report),
+             f"perf-report {report}")
 
     rc, seconds["vfio"], _, err = _cli(validator_main,
                                        ["--component=vfio", *base])
@@ -5924,7 +6111,8 @@ def main_path(torch, _build, ops, microbench, workloads) -> list:
 
     records = check_kernels(torch, ops, microbench)
     torch_component_rates(workloads)
-    probe_chain_profile(torch, workloads)
+    graph_chains(torch, ops, workloads)
+    perf_gate(torch, microbench, probe_chain_profile(torch, workloads))
     legs = drive_main_path(torch, ops, microbench)
     legs |= collectives(torch, ops)
     print(json.dumps({"launches_by_leg": legs}), flush=True)

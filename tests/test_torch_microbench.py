@@ -7,6 +7,8 @@ runs them) and to the port's wrappers.  The CUDA kernels themselves are held
 against the same plain versions on the card by chip_smoke.py.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,16 +210,137 @@ def test_chip_peaks_cover_known_gens():
     assert mb.chip_generation(CPU) == ""
 
 
-def test_uncalibrated_floor_is_report_only(monkeypatch):
-    """No on-card artifact calibrates a floor yet: a known part reports
-    'floor uncalibrated' and enforce does not gate."""
+# the worst probe readings recorded on an H100 80GB HBM3 at 700 W
+# (PERF.md §2), in TFLOP/s and GiB/s
+WORST_RECORDED = {"mxu": 228.95, "hbm": 2838.5}
+# on the CPU both probes clamp their shapes (256^2, 1 MiB): the work per
+# step of the rate they time tells the two apart
+MXU_CPU_WORK = 2.0 * 256 ** 3
+
+
+def _stub_rates(monkeypatch, module, tflops: float, gibs: float) -> None:
+    """Both probes of ``module`` read ``tflops`` and ``gibs``: the timed
+    chains are replaced by their readings."""
+    def rate(run, work_per_rep, r1, r2):
+        if work_per_rep == MXU_CPU_WORK:
+            return tflops * 1e12
+        return gibs * 1024 ** 3
+    monkeypatch.setattr(module, "_two_point_rate", rate)
+
+
+def _perf_component(tmp_path, monkeypatch, enforce: bool):
+    """run_component("perf") on the CPU: (values or the error, the
+    perf-report file, whether perf-ready was written)."""
+    from tpu_operator_torch import statusfiles
+    from tpu_operator_torch.validator.components import (Context,
+                                                         ValidationError,
+                                                         run_component)
+    monkeypatch.setenv("PERF_ENFORCE", "true" if enforce else "false")
+    monkeypatch.delenv("PERF_QUICK", raising=False)
+    status = str(tmp_path / "status")
+    ctx = Context(status_dir=status, device=CPU)
+    try:
+        out = run_component("perf", ctx)
+    except ValidationError as e:
+        out = e
+    return (out, statusfiles.read_status("perf-report", status),
+            os.path.exists(os.path.join(status, "perf-ready")))
+
+
+@pytest.mark.parametrize("share,enforce,passes", [
+    pytest.param(0.5, True, False, id="half-the-worst-fails"),
+    pytest.param(1.0, True, True, id="the-worst-passes"),
+    pytest.param(0.5, False, True, id="not-enforced-passes"),
+])
+def test_perf_gate_on_an_h100(tmp_path, monkeypatch, share, enforce, passes):
+    """An H100 SXM is gated on both floors: a card reading half the worst
+    recorded rate fails both probes and gets no perf-ready, while the
+    worst recorded rate passes; PERF_ENFORCE=false reports the floors and
+    gates nothing."""
     monkeypatch.setattr(mb, "chip_generation", lambda device: "h100-sxm")
-    r = mb.mxu_probe(enforce=True, device=CPU)
-    assert r.ok and r.floor is None
-    assert "floor uncalibrated [h100-sxm]" in r.detail
-    monkeypatch.setattr(mb, "GATE_FLOORS", {"h100-sxm": (1e9, 1e9)})
-    r = mb.hbm_probe(enforce=True, device=CPU)
-    assert not r.ok and r.floor == 1e9
+    _stub_rates(monkeypatch, mb, share * WORST_RECORDED["mxu"],
+                share * WORST_RECORDED["hbm"])
+    mxu = mb.mxu_probe(enforce=enforce, device=CPU)
+    hbm = mb.hbm_probe(enforce=enforce, device=CPU)
+    assert (mxu.ok, hbm.ok) == (passes, passes), (mxu.detail, hbm.detail)
+    out, report, ready = _perf_component(tmp_path, monkeypatch, enforce)
+    assert ready is passes
+    assert {"mxu_tflops_floor", "hbm_gibs_floor"} <= set(report)
+    assert report["enforced"] == ("true" if enforce else "false")
+    assert report["mxu-probe_ok"] == report["hbm-probe_ok"] == (
+        "true" if passes else "false")
+    if passes:
+        assert out["chip_gen"] == "h100-sxm"
+    else:
+        assert "mxu-probe" in str(out) and "hbm-probe" in str(out)
+
+    floors = (mb.CHIP_PEAKS["h100-sxm"][0] * mb.MXU_GATE_FRACTION,
+              mb.CHIP_PEAKS["h100-sxm"][1] * mb.HBM_GATE_FRACTION
+              / 1.073741824)
+    assert (mxu.floor, hbm.floor) == pytest.approx(floors)
+    assert f"floor {floors[0]:.0f} [h100-sxm]" in mxu.detail
+    assert f"floor {floors[1]:.0f} [h100-sxm]" in hbm.detail
+    assert report["mxu_tflops_floor"] == f"{floors[0]:.1f}"
+    assert report["hbm_gibs_floor"] == f"{floors[1]:.1f}"
+
+
+def test_every_part_has_both_floors():
+    """As the reference gates every generation it knows, every part of
+    CHIP_PEAKS gets both floors, the same fractions of its peaks."""
+    assert 0.0 < mb.MXU_GATE_FRACTION < mb.HBM_GATE_FRACTION < 1.0
+    for gen in mb.CHIP_PEAKS:
+        tflops, gbs = mb.CHIP_PEAKS[gen]
+        assert tflops * mb.MXU_GATE_FRACTION > 0
+        assert gbs * mb.HBM_GATE_FRACTION > 0
+    # the worst recorded readings clear their floors; half of them do not
+    tflops, gbs = mb.CHIP_PEAKS["h100-sxm"]
+    hbm_floor = gbs * mb.HBM_GATE_FRACTION / 1.073741824
+    mxu_floor = tflops * mb.MXU_GATE_FRACTION
+    assert WORST_RECORDED["hbm"] / 2 < hbm_floor < WORST_RECORDED["hbm"]
+    assert WORST_RECORDED["mxu"] / 2 < mxu_floor < WORST_RECORDED["mxu"]
+
+
+# each fraction of both floors, on a generation each package knows
+@pytest.mark.parametrize("fraction", [0.5, 0.99, 1.01, 2.0])
+def test_perf_gate_matches_jax(tmp_path, monkeypatch, fraction):
+    """The JAX package's validate_perf (Pallas in interpret mode, v5e
+    forced) and the port's (h100-sxm forced), each reading the same
+    fraction of its own floors, fail or pass alike and report the same
+    keys."""
+    from tpu_operator import statusfiles as jax_statusfiles
+    from tpu_operator.host import make_fake_host as jax_fake_host
+    from tpu_operator.validator import components as jax_components
+
+    monkeypatch.setattr(jmb, "_on_tpu", lambda: True)
+    monkeypatch.setattr(jmb, "_interpret", lambda: True)
+    monkeypatch.setattr(jmb, "_chip_gen", lambda device=None: "v5e")
+    tflops, gbs = jmb.CHIP_PEAKS["v5e"]
+    _stub_rates(monkeypatch, jmb, fraction * tflops * jmb.MXU_GATE_FRACTION,
+                fraction * gbs * jmb.HBM_GATE_FRACTION / 1.073741824)
+    monkeypatch.setenv("PERF_ENFORCE", "true")
+    monkeypatch.delenv("PERF_QUICK", raising=False)
+    jax_status = str(tmp_path / "jax")
+    ctx = jax_components.Context(host=jax_fake_host(str(tmp_path / "host")),
+                                 status_dir=jax_status)
+    try:
+        jax_components.run_component("perf", ctx)
+        jax_passed = True
+    except jax_components.ValidationError:
+        jax_passed = False
+    jax_report = jax_statusfiles.read_status("perf-report", jax_status)
+
+    monkeypatch.setattr(mb, "chip_generation", lambda device: "h100-sxm")
+    tflops, gbs = mb.CHIP_PEAKS["h100-sxm"]
+    _stub_rates(monkeypatch, mb, fraction * tflops * mb.MXU_GATE_FRACTION,
+                fraction * gbs * mb.HBM_GATE_FRACTION / 1.073741824)
+    out, report, ready = _perf_component(tmp_path / "port", monkeypatch, True)
+
+    assert jax_passed is (fraction > 1.0)
+    assert ready is jax_passed
+    assert os.path.exists(os.path.join(jax_status, "perf-ready")) is ready
+    assert sorted(report) == sorted(jax_report)
+    for key in ("mxu-probe_ok", "hbm-probe_ok", "vpu-probe_ok", "enforced"):
+        assert report[key] == jax_report[key], key
 
 
 def test_perf_component_registered(tmp_path, monkeypatch):

@@ -418,8 +418,10 @@ EXTRA_STATUS_FILES = {
 
 def validate_perf(ctx: Context) -> Dict[str, str]:
     """Kernel microbenchmarks: tensor-core TFLOP/s, memory GiB/s, FMA
-    correctness.  PERF_ENFORCE=false downgrades floors to report-only (no
-    part has a calibrated floor yet).  Numbers are always persisted to
+    correctness, gated against per-part floors (``microbench``'s
+    ``*_GATE_FRACTION`` of its ``CHIP_PEAKS``): a card below a floor fails
+    and gets no ``perf-ready``.  PERF_ENFORCE=false downgrades the floors
+    to report-only.  Numbers and floors are always persisted to
     ``perf-report``; ``perf-ready`` — the barrier — is written by
     run_component only when the gate passes."""
     from . import microbench

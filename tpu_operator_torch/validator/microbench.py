@@ -12,8 +12,10 @@ there is a hand-written CUDA kernel here (``validator/ops.py`` over
 With ``device="cpu"`` the wrappers run their plain PyTorch versions at
 clamped shapes: correctness is still asserted, the rates are the host's, and
 sweeps carry ``"interpret": True`` — plain CPU version, not evidence about
-any card.  Gates are report-only until a recorded on-card artifact
-calibrates a floor for the part (see ``GATE_FLOORS``).
+any card.  On the card both rate chains replay as CUDA graphs
+(``validator/graphs.py``), the counterpart of the reference's one-dispatch
+``fori_loop`` chains, and every known part is gated on floors set by
+``MXU_GATE_FRACTION`` and ``HBM_GATE_FRACTION`` of its peaks.
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..host import chip_type_from_name
 from . import ops
+from .graphs import ChainGraphs, chain
 from .workloads import ValidationReport, _burn_in_fn
 
 # Public per-part peaks: (bf16 dense TFLOP/s, device-memory GB/s), from
@@ -37,10 +40,24 @@ CHIP_PEAKS = {
     "h100-sxm": (989.0, 3350.0),
     "h100-pcie": (756.0, 2000.0),
 }
-# Gate floors per part: (TFLOP/s, GiB/s).  Like the JAX package's, a floor is
-# calibrated to the worst recorded on-card artifact; none is recorded yet,
-# so every part is report-only and its detail says "floor uncalibrated".
-GATE_FLOORS: Dict[str, Tuple[float, float]] = {}
+# Floors are fractions of each part's peaks, calibrated as the reference's
+# are (tpu_operator/validator/microbench.py:55-68): to the WORST recorded
+# probe reading on an H100 80GB HBM3 at 700 W (PERF.md §2; 21 readings of
+# each graph-replayed chain over four chip_smoke.py runs), such that a
+# card at half its rate trips the floor and run-to-run spread does not.
+# MXU: the probe's chain is a 2048^2 product (35 us) plus an f32
+# renormalisation on the CUDA cores (36 us) per step, so a healthy card
+# reads about a quarter of the bf16 peak: worst 228.95 TFLOP/s (23%),
+# spread 228.95-237.7.  With the product at half speed the same chain
+# reads 160.8-162.3.  0.20 of the peak is 197.8 TFLOP/s: 1.22x that
+# half-rate reading, and 86% of the worst healthy one.
+MXU_GATE_FRACTION = 0.20
+# HBM: the triad chain is device-bound; the worst recorded reading is
+# 2838.5 GiB/s (3047.8 GB/s, 91% of the 3350 GB/s peak; launched eagerly),
+# the graph-replayed ones 2852.6-2876.5.  0.70 of the peak is 2184 GiB/s:
+# 77% of that worst reading, and 1.54x the 1419 GiB/s a card at half its
+# bandwidth would read.
+HBM_GATE_FRACTION = 0.70
 
 # Triad (array MiB, threads per block) per part, and the sweep grid.
 HBM_TILING = {
@@ -87,8 +104,7 @@ def _sync(device: str) -> None:
 def _gate_note(gen: str, floor: float, share: float) -> str:
     if not gen:
         return ""
-    gate = f"floor {floor:.0f}" if floor else "floor uncalibrated"
-    return f", {100.0 * share:.0f}% of peak, {gate} [{gen}]"
+    return f", {100.0 * share:.0f}% of peak, floor {floor:.0f} [{gen}]"
 
 
 # --------------------------------------------------------------------------
@@ -122,8 +138,8 @@ def mxu_probe(size: Optional[int] = None, tile: Optional[int] = None,
               reps: int = 32, enforce: bool = False, kt: Optional[int] = None,
               device: str = "cuda") -> ValidationReport:
     """The tensor-core matmul kernel on one card; checks the result against
-    the f32 product of the same bf16 inputs and (with ``enforce`` and a
-    calibrated floor) gates on TFLOP/s.  Unset size/tile/kt resolve from
+    the f32 product of the same bf16 inputs and (with ``enforce``, on a
+    part of CHIP_PEAKS) gates on TFLOP/s.  Unset size/tile/kt resolve from
     MXU_TILING; ``tile`` is the kernel's block tile and ``kt`` its K-step
     (the k-blocked kernel's counterpart)."""
     gen = chip_generation(device)
@@ -159,13 +175,15 @@ def mxu_probe(size: Optional[int] = None, tile: Optional[int] = None,
     # the chain renormalises between products and ends in a fetched scalar,
     # the completion barrier.  16x spread: the wide point's device time
     # keeps the marginal well above launch and synchronise jitter
-    rate = _two_point_rate(
-        lambda r: float(_burn_in_fn(a, b, r, block=tile, kt=kt)),
-        2.0 * size ** 3, reps, reps * 16)
+    with ChainGraphs() as graphs:
+        rate = _two_point_rate(
+            lambda r: float(_burn_in_fn(a, b, r, block=tile, kt=kt,
+                                        graphs=graphs)),
+            2.0 * size ** 3, reps, reps * 16)
     dt = time.perf_counter() - t0
     tflops = rate / 1e12
 
-    floor = GATE_FLOORS.get(gen, (0.0, 0.0))[0]
+    floor = CHIP_PEAKS[gen][0] * MXU_GATE_FRACTION if gen else 0.0
     fast_enough = (not enforce) or (not floor) or tflops >= floor
     ok = correct and fast_enough
     share = tflops / CHIP_PEAKS[gen][0] if gen else 0.0
@@ -215,13 +233,23 @@ def mxu_sweep(points: Sequence[Tuple[int, int, int]] = MXU_SWEEP_POINTS,
 # --------------------------------------------------------------------------
 
 def _triad_chain(a: torch.Tensor, b: torch.Tensor, threads: int,
-                 reps: int) -> torch.Tensor:
-    """reps dependent in-place triad passes a = a*0.25 + b, reduced to a
-    cheap scalar barrier; scale 0.25 bounds the iteration (fixed point 8/3)
-    without an extra memory pass."""
-    for _ in range(reps):
-        ops.triad_(a, b, 0.25, threads=threads)
-    return a[0, :8].sum()
+                 reps: int, graphs: Optional[ChainGraphs] = None
+                 ) -> torch.Tensor:
+    """reps dependent in-place triad passes acc = acc*0.25 + b from a (left
+    intact), reduced to a cheap scalar barrier; scale 0.25 bounds the
+    iteration (fixed point 8/3) without an extra memory pass.  On the card
+    the chain replays through ``graphs`` (one of its own where None is
+    given)."""
+    def step(acc: torch.Tensor) -> torch.Tensor:
+        return ops.triad_(acc, b, 0.25, threads=threads)
+
+    if a.is_cuda:
+        acc = chain(graphs, ("triad", b.data_ptr(), threads), step, a, reps)
+    else:
+        acc = a.clone()
+        for _ in range(reps):
+            acc = step(acc)
+    return acc[0, :8].sum()
 
 
 def hbm_probe(mib: Optional[int] = None, threads: Optional[int] = None,
@@ -229,7 +257,7 @@ def hbm_probe(mib: Optional[int] = None, threads: Optional[int] = None,
               device: str = "cuda") -> ValidationReport:
     """In-place triad kernel over two device-resident arrays of ``mib`` MiB.
     Reports achieved GiB/s (3 streams per element per pass); with
-    ``enforce`` and a calibrated floor, gates on it.  ``mib``/``threads``
+    ``enforce``, on a part of CHIP_PEAKS, gates on it.  ``mib``/``threads``
     default to the HBM_TILING entry."""
     default_mib, default_threads = HBM_TILING.get(chip_generation(device),
                                                   HBM_TILING[""])
@@ -255,16 +283,18 @@ def hbm_probe(mib: Optional[int] = None, threads: Optional[int] = None,
     correct = bool(np.allclose(sample, 1.5 * 3.0 + 2.0))
 
     t0 = time.perf_counter()
-    # the chain goes on in a's storage, so only the two arrays stay live;
-    # its start value does not matter to the rate (fixed point 8/3)
-    rate = _two_point_rate(
-        lambda r: float(_triad_chain(a, b, threads, r)),
-        3.0 * rows * cols * 4, reps, reps * 4)
+    # on the card the chain runs in its graphs' static copy of a, a third
+    # array; its start value does not matter to the rate (fixed point 8/3)
+    with ChainGraphs() as graphs:
+        rate = _two_point_rate(
+            lambda r: float(_triad_chain(a, b, threads, r, graphs)),
+            3.0 * rows * cols * 4, reps, reps * 4)
     dt = time.perf_counter() - t0
     gibs = rate / (1024 ** 3)
 
     gen = chip_generation(device)
-    floor = GATE_FLOORS.get(gen, (0.0, 0.0))[1]
+    floor = CHIP_PEAKS[gen][1] * HBM_GATE_FRACTION / 1.073741824 if gen \
+        else 0.0  # GB/s peak -> GiB/s
     fast_enough = (not enforce) or (not floor) or gibs >= floor
     ok = correct and fast_enough
     share = gibs * 1.073741824 / CHIP_PEAKS[gen][1] if gen else 0.0

@@ -14,10 +14,11 @@ Single device:
   that ``tpu_operator_torch.entry.entry()`` runs.
 
 These take an explicit ``device``: ``"cuda"`` unless the caller asks for
-``"cpu"``, where the kernels' plain versions run (the parity tests).  The
-chains run eagerly, one launch per op: where the JAX package ran a whole
-``fori_loop`` chain in one dispatch, the marginal rates here include the
-host's launch cost, which bounds the small burn-in shapes.
+``"cpu"``, where the kernels' plain versions run (the parity tests).  On the
+card the burn-in and triad chains replay captured units of steps as CUDA
+graphs (``validator/graphs.py``), where the JAX package ran a whole
+``fori_loop`` chain in one dispatch, so their marginal rates are the
+device's; on the CPU they run eagerly.
 
 Multi-device (from :func:`make_mesh` on): the collective checks, the
 sharded dp×tp train step and the full validation chain.  They run SPMD:
@@ -42,6 +43,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from . import _dist, ops
+from .graphs import ChainGraphs, chain
 
 
 @dataclasses.dataclass
@@ -103,21 +105,37 @@ def device_check(expected_count: int = 0,
 # tensor-core burn-in
 # --------------------------------------------------------------------------
 
+def _burn_in_step(acc: torch.Tensor, w: torch.Tensor, block: int,
+                  kt: int) -> torch.Tensor:
+    """One step of the burn-in chain: the bf16 product with an f32 result,
+    normalised to stop overflow, then back to bf16 for the next product."""
+    out = ops.matmul_bf16_f32(acc, w, kt=kt, block=block)
+    out = out / (out.abs().max() + 1e-6)
+    return out.bfloat16()
+
+
 def _burn_in_fn(x: torch.Tensor, w: torch.Tensor, iters: int,
-                block: Optional[int] = None, kt: int = 0) -> torch.Tensor:
+                block: Optional[int] = None, kt: int = 0,
+                graphs: Optional[ChainGraphs] = None) -> torch.Tensor:
     """Chained bf16 products with f32 results and a renormalisation — keeps
     the tensor cores busy and yields a value-dependent checksum so silent
     corruption surfaces.  ``block``/``kt`` pick the kernel's tiling (block
     defaults to the largest that divides the size); the microbench's matmul
-    chain is this function at the probe's tiling."""
+    chain is this function at the probe's tiling.  On the card the chain
+    replays through ``graphs`` (one of its own where None is given)."""
     if block is None:
         block = 128 if x.shape[0] % 128 == 0 else 64
-    acc = x
-    for _ in range(iters):
-        out = ops.matmul_bf16_f32(acc, w, kt=kt, block=block)
-        # normalise to stop overflow, then back to bf16 for the next product
-        out = out / (out.abs().max() + 1e-6)
-        acc = out.bfloat16()
+
+    def step(acc: torch.Tensor) -> torch.Tensor:
+        return _burn_in_step(acc, w, block, kt)
+
+    if x.is_cuda:
+        acc = chain(graphs, ("burn-in", w.data_ptr(), tuple(w.shape), block,
+                             kt), step, x, iters)
+    else:
+        acc = x
+        for _ in range(iters):
+            acc = step(acc)
     return acc.float().sum()
 
 
@@ -167,8 +185,9 @@ def matmul_burn_in(size: int = 1024, iters: int = 8, seed: int = 0,
     w = torch.randn((size, size), generator=g, device=device,
                     dtype=torch.bfloat16)
     lo = iters
-    marginal, hi, dt, vals = _escalated_marginal(
-        lambda n: _burn_in_fn(x, w, n), lo, iters * 65536)
+    with ChainGraphs() as graphs:
+        marginal, hi, dt, vals = _escalated_marginal(
+            lambda n: _burn_in_fn(x, w, n, graphs=graphs), lo, iters * 65536)
     # the two timed executions double as the determinism pair
     a_val, b_val = (float(v) for v in vals[-2:])
     finite = bool(np.isfinite(a_val))
@@ -178,7 +197,7 @@ def matmul_burn_in(size: int = 1024, iters: int = 8, seed: int = 0,
     ok = finite and deterministic
     detail = (f"checksum={a_val:.6g} "
               f"{'deterministic' if deterministic else f'NONDETERMINISTIC ({b_val:.6g})'}"
-              f", {tflops:.2f} TFLOP/s")
+              f", {tflops:.2f} TFLOP/s over {size}^2 x {hi}")
     return ValidationReport("matmul-burn-in", ok, dt, detail, value=tflops)
 
 
@@ -186,14 +205,28 @@ def matmul_burn_in(size: int = 1024, iters: int = 8, seed: int = 0,
 # device-memory stress
 # --------------------------------------------------------------------------
 
-def _triad_chain(b: torch.Tensor, c: torch.Tensor, reps: int) -> torch.Tensor:
+def _triad_step(acc: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """One triad pass acc = acc*0.25 + c, in acc's storage: one fused
+    ``torch.add`` reading acc and c and writing acc — 3 streams, the count
+    the GiB/s figure assumes."""
+    return torch.add(c, acc, alpha=0.25, out=acc)
+
+
+def _triad_chain(b: torch.Tensor, c: torch.Tensor, reps: int,
+                 graphs: Optional[ChainGraphs] = None) -> torch.Tensor:
     """reps dependent triad passes acc = acc*0.25 + c starting from b (left
-    intact); scale 0.25 keeps the fixed point bounded (8/3).  Each pass is
-    one fused ``torch.add`` reading acc and c and writing acc — 3 streams,
-    the count the GiB/s figure assumes."""
+    intact); scale 0.25 keeps the fixed point bounded (8/3).  On the card
+    the chain replays through ``graphs`` (one of its own where None is
+    given)."""
+    def step(acc: torch.Tensor) -> torch.Tensor:
+        return _triad_step(acc, c)
+
+    if b.is_cuda:
+        return chain(graphs, ("stress", c.data_ptr(), tuple(c.shape)), step,
+                     b, reps)[:8].clone()
     acc = b.clone()
     for _ in range(reps):
-        torch.add(c, acc, alpha=0.25, out=acc)
+        acc = step(acc)
     return acc[:8]
 
 
@@ -210,8 +243,9 @@ def hbm_stress(mib: int = 256, iters: int = 4,
     b = torch.full((n,), 1.5, dtype=torch.float32, device=device)
     c = torch.full((n,), 2.0, dtype=torch.float32, device=device)
     lo = iters
-    marginal, hi, dt, vals = _escalated_marginal(
-        lambda r: _triad_chain(b, c, r), lo, iters * 4096)
+    with ChainGraphs() as graphs:
+        marginal, hi, dt, vals = _escalated_marginal(
+            lambda r: _triad_chain(b, c, r, graphs), lo, iters * 4096)
     sample = vals[-1]
     # fixed point of x = x*0.25 + 2.0 is 8/3; after a few passes any start
     # value has converged to it
