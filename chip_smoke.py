@@ -19,7 +19,11 @@ NVIDIA H100.
    sweep's array sizes and ragged ones, at every block size the validator
    uses (with ``b`` left bit-equal and the result in ``a``'s storage),
    then every kernel at the shapes the validator path gives it (the matmul
-   at 512^2 for the burn-in, both blocks, and at 2048^2 for the probe), and
+   at both blocks at 256^2-2048^2, where ``ops.matmul_block``'s choice must
+   time within 5% of the other block — the burn-in's 512^2 against
+   ``torch.mm`` among them —, at 2048^2 for the probe, and the train step's
+   and ``entry()``'s products through ``ops.MatmulBf16F32``, forward and
+   each backward product, within 1e-4 relative of the f32 product), and
    times kernel, plain version and the one PyTorch library call computing
    the same function: device time per call from torch.profiler, the median
    of five rounds that take the calls in turn (``ms``, ``plain_ms``,
@@ -58,8 +62,11 @@ NVIDIA H100.
    plugin's Healthy devices into the Node's ``nvidia.com/gpu`` capacity
    and runs each workload pod that appears on the plugin's preferred
    allocation (the pod's own command and args, ``--component=nccl
-   --in-pod``, in a child with the env the CDI spec and the allocation
-   give, which must see exactly the allocated cards and launch no kernel),
+   --in-pod``, in a child with the pod's env, its ``kernel-cache`` volume
+   mapped to the node's build dir holding this run's library, and the env
+   the CDI spec and the allocation give, which must see exactly the
+   allocated cards, load that library with no compile (its seconds
+   printed) and launch the matmul five times per train step),
    ``--component=plugin`` (at its own 5 s wait intervals) must see the
    capacity, create the pod, see it succeed and write ``plugin-ready``,
    the pod must be gone afterwards, and feature discovery (``fd
@@ -245,7 +252,8 @@ NVIDIA H100.
    the bench's matmul sweep leg
    (``microbench --mxu-sweep``, the route of the k-blocked kernel), its
    memory sweep leg (``microbench --hbm-sweep``: the triad at 128-1024 MiB
-   per array and 128/256/512 threads) and ``entry()``'s forward step.
+   per array and 128/256/512 threads) and ``entry()``'s forward step (its
+   two products: two matmul launches).
    Checks the status files, the sweep points (every one measured, none
    failed or wrong) and the forward loss against the same step on the
    CPU.
@@ -256,7 +264,8 @@ NVIDIA H100.
    value; ring and Ulysses attention on the cards against the same
    functions on a world-1 gloo group on the CPU, same inputs, max |d| <=
    1e-5; the sharded train step's losses on the cards against the CPU's
-   (same world, gloo), rel 1e-4; ``--component=nccl`` through the CLI
+   (same world, gloo), rel 1e-4, each rank launching the matmul five
+   times a step and nothing else; ``--component=nccl`` through the CLI
    (``nccl-ready`` with one device per card); ``run_full_validation`` at
    full size (every report ok, the JAX package's names in its order); and
    ``dryrun_multigpu``.  A failed NCCL start fails the run.
@@ -322,9 +331,10 @@ def _call_ms(torch, fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, reps: int):
-    """Device time per call: the kernels' durations that torch.profiler
-    records over reps calls, summed, over reps.  None if it saw none."""
+def _device_ms(torch, fn, reps: int, part: str = ""):
+    """Device time per call: the durations of the kernels whose names hold
+    ``part`` (every kernel by default) that torch.profiler records over
+    reps calls, summed, over reps.  None if it saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -335,7 +345,8 @@ def _device_ms(torch, fn, reps: int):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and part in e.key)
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -448,7 +459,8 @@ def check_kernels(torch, ops, microbench) -> dict:
         return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
 
     def record(name, source, replaces, err, tol, kernel, plain, library,
-               reps, nbytes, flops, peak_flops, keep=True, library_oop=None):
+               reps, nbytes, flops, peak_flops, keep=True, library_oop=None,
+               extra=None):
         bound_ms, bound_by = _bound(nbytes, flops, peak_flops)
         fns = [kernel, plain, library] + ([library_oop] if library_oop else [])
         times = _times(torch, fns, reps)
@@ -465,9 +477,11 @@ def check_kernels(torch, ops, microbench) -> dict:
             # the same function written into a new tensor, beside the
             # in-place call
             rec["library_oop_ms"], rec["library_oop_call_ms"], _ = times[3]
+        rec |= extra or {}
         print(json.dumps({"kernel_check": rec}), flush=True)
         if keep:
             records[name] = rec
+        return rec
 
     # kernels 1 and 2, one CUDA kernel: each (block, K-step) instantiation
     # at its smallest shape (m = n = block, k = two K-steps) and at a ragged
@@ -486,18 +500,8 @@ def check_kernels(torch, ops, microbench) -> dict:
 
     matmul_src = "tpu_operator_torch/csrc/matmul_bf16.cu"
     matmul_tol = "|d| <= 1e-2 + 1e-2*|want| (microbench.py:253)"
-    # the burn-in's 512^2 (kt=0), both blocks: ~96% of kernel 1's launches
-    n = 512
-    a, b = bf16(n, n), bf16(n, n)
-    for block in ops.MATMUL_BLOCKS:
-        record(f"matmul_bf16_f32 512^2 block {block}", matmul_src,
-               "tpu_operator/validator/microbench.py:130",
-               _matmul_err(torch, ops, a, b, 0, block), matmul_tol,
-               lambda: ops.matmul_bf16_f32(a, b, block=block),
-               lambda: ops.matmul_bf16_f32_plain(a, b),
-               lambda: torch.mm(a, b), 200,
-               2 * n * n * 2 + n * n * 4, 2.0 * n ** 3, PEAK_BF16_FLOPS,
-               keep=False)
+    block_rule(torch, ops, bf16, record, matmul_src, matmul_tol)
+    train_step_products(torch, ops, g, record, matmul_src)
 
     # the probe's 2048^2, K-step 32 (kt=0) and the port's k-blocked K-step 64
     n = 2048
@@ -581,6 +585,156 @@ def check_kernels(torch, ops, microbench) -> dict:
            lambda: torch.addcmul(c, a, b).relu_(), 200,
            4 * a.numel() * 4, 3.0 * a.numel(), PEAK_F32_FLOPS)
     return records
+
+
+# the sizes the block rule was set from, and how much slower than the other
+# block its choice may time at each before the run fails (the device
+# times' run-to-run spread is about 1%)
+BLOCK_RULE_SIZES = (256, 512, 1024, 2048)
+BLOCK_RULE_SLACK = 1.05
+
+
+def block_rule(torch, ops, bf16, record, source: str, tol: str) -> dict:
+    """Both blocks of the matmul (kt=0) at each of
+    :data:`BLOCK_RULE_SIZES` squared, beside ``torch.mm``: one
+    ``kernel_check`` line each, then one ``block_rule`` line with the block
+    ``ops.matmul_block`` picks on this card, which must time within
+    :data:`BLOCK_RULE_SLACK` of the other — the burn-in's default block
+    (the ``torch`` component's 512^2 among them) against ``torch.mm``."""
+    sms = ops.sm_count(torch.device("cuda"))
+    out = []
+    for n in BLOCK_RULE_SIZES:
+        a, b = bf16(n, n), bf16(n, n)
+        ms = {}
+        for block in ops.MATMUL_BLOCKS:
+            rec = record(f"matmul_bf16_f32 {n}^2 block {block}", source,
+                         "tpu_operator/validator/microbench.py:130",
+                         _matmul_err(torch, ops, a, b, 0, block), tol,
+                         lambda: ops.matmul_bf16_f32(a, b, block=block),
+                         lambda: ops.matmul_bf16_f32_plain(a, b),
+                         lambda: torch.mm(a, b), 200 if n <= 1024 else 20,
+                         2 * n * n * 2 + n * n * 4, 2.0 * n ** 3,
+                         PEAK_BF16_FLOPS, keep=False)
+            ms[block] = rec["ms"]
+            library = rec["library_ms"]
+        chosen = ops.matmul_block(n, n, sms)
+        other = min(b_ for b_ in ms if b_ != chosen)
+        out.append({"size": n, "ms_by_block": ms, "chosen": chosen,
+                    "chosen_over_other": ms[chosen] / ms[other],
+                    "library_ms": library,
+                    "chosen_over_library": ms[chosen] / library})
+        del a, b
+    print(json.dumps({"block_rule": {"sms": sms, "sizes": out}}), flush=True)
+    _require(all(r["chosen_over_other"] <= BLOCK_RULE_SLACK for r in out),
+             f"ops.matmul_block picks the slower block: {out}")
+    return out
+
+
+def _stacked(torch, blocks, along: int):
+    """Blocks laid end to end along ``along`` as one bf16 operand."""
+    return torch.cat([t.bfloat16() for t in blocks], dim=along)
+
+
+def train_step_products(torch, ops, g, record, source: str) -> None:
+    """The train step's products on the card as ``ops.MatmulBf16F32``
+    launches them — forward, and each backward product through
+    ``torch.autograd.grad`` with only its input needing a gradient — at
+    the full-width step's shapes on this machine's mesh (``d_in`` 128,
+    ``d_hidden`` 256 over the model axis, 8 rows per rank) and at
+    ``entry()``'s 32 x 128 batch.  Each is held against the function it
+    computes in plain f32 (TF32 off): relative error, max |d| over the
+    largest |want|, within 1e-4; against the kernel's own arithmetic in
+    plain PyTorch (the cotangent's three bf16 terms stacked along K) as
+    ``max_abs_err``; and timed beside that plain version and ``torch.mm``
+    on the same inputs (bf16 operands forward; the f32 product backward).
+    One kernels-line record each, its launches counted as
+    ``matmul_bf16_f32``'s."""
+    from tpu_operator_torch.validator import workloads as wl
+
+    dev = torch.device("cuda")
+    model = wl.default_mesh_shape(torch.cuda.device_count())[1]
+    d_in, d_h, rows = 128, 256 // model, 8
+
+    def bf16_valued(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16().float()
+
+    def f32(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 1e-2
+
+    x, w1 = bf16_valued(rows, d_in), bf16_valued(d_in, d_h)
+    h, w2 = bf16_valued(rows, d_h), bf16_valued(d_h, d_in)
+    g_out, g_pre = f32(rows, d_in), f32(rows, d_h)
+    ex, ew1 = bf16_valued(32, d_in), bf16_valued(d_in, 256)
+    eh, ew2 = bf16_valued(32, 256), bf16_valued(256, d_in)
+    # (name, A, B, the input whose gradient it is or None, cotangent)
+    products = (("step forward x.W1", x, w1, None, None),
+                ("step forward h.W2", h, w2, None, None),
+                ("step backward dW2 = h^T.g", h, w2, 1, g_out),
+                ("step backward dh = g.W2^T", h, w2, 0, g_out),
+                ("step backward dW1 = x^T.g", x, w1, 1, g_pre),
+                ("entry forward x.W1", ex, ew1, None, None),
+                ("entry forward h.W2", eh, ew2, None, None))
+    checked = []
+    for name, a, b, wrt, cot in products:
+        if wrt is None:
+            def kernel(a=a, b=b):
+                return ops.MatmulBf16F32.apply(a, b)
+            a16, b16 = a.bfloat16(), b.bfloat16()
+            plain = lambda a16=a16, b16=b16: ops.matmul_bf16_f32_plain(a16,
+                                                                       b16)
+            library = lambda a16=a16, b16=b16: torch.mm(a16, b16)
+            want_fn = plain
+            (m, k), n = a.shape, b.shape[1]
+        else:
+            ins = [a.clone().requires_grad_(wrt == 0),
+                   b.clone().requires_grad_(wrt == 1)]
+            out = ops.MatmulBf16F32.apply(*ins)
+
+            def kernel(out=out, inp=ins[wrt], cot=cot):
+                return torch.autograd.grad(out, inp, cot,
+                                           retain_graph=True)[0]
+            terms = ops.split_bf16x3(cot)
+            if wrt == 0:              # g . B^T
+                sa, sb = _stacked(torch, terms, 1), _stacked(
+                    torch, [b.t()] * 3, 0)
+                want_fn = lambda cot=cot, b=b: cot @ b.t()
+                m, k, n = cot.shape[0], cot.shape[1], b.shape[0]
+            else:                     # A^T . g
+                sa, sb = _stacked(torch, [a.t()] * 3, 1), _stacked(
+                    torch, terms, 0)
+                want_fn = lambda cot=cot, a=a: a.t() @ cot
+                m, k, n = a.shape[1], a.shape[0], cot.shape[1]
+            plain = lambda sa=sa, sb=sb: ops.matmul_bf16_f32_plain(sa, sb)
+
+            def library(want_fn=want_fn):
+                with ops.no_tf32():
+                    return want_fn()
+        # f32 operands (bf16-valued, as the step hands them over), f32 out
+        nbytes = (m * k + k * n) * 4 + m * n * 4
+        with ops.no_tf32():
+            want = want_fn()
+        got = kernel()
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        err = float((got - plain()).abs().max())
+        checked.append({"product": name, "m": m, "k": k, "n": n,
+                        "rel_err": rel, "max_abs_err": err})
+        _require(got.shape == want.shape and rel <= 1e-4,
+                 f"{name}: the Function on the card is {rel} off the f32 "
+                 "product")
+        record(f"matmul_bf16_f32 {name} {m}x{k}x{n}", source,
+               "tpu_operator/validator/microbench.py:130", err,
+               "max|d| <= 1e-4 * max|want| against the f32 product",
+               kernel, plain, library, 100, nbytes, 2.0 * m * k * n,
+               PEAK_BF16_FLOPS,
+               # a shape of a kernel whose launches count under its route
+               extra={"counted_as": "matmul_bf16_f32",
+                      "rel_err_vs_f32": rel, "shape": [m, k, n],
+                      "ms_includes": "padding copies, the cotangent's "
+                                     "split, autograd's backward call",
+                      "matmul_kernel_ms": _device_ms(
+                          torch, kernel, 100, "matmul_bf16_f32_kernel")})
+    print(json.dumps({"train_step_products": checked}), flush=True)
 
 
 def torch_component_rates(workloads) -> None:
@@ -1334,8 +1488,9 @@ if {stages!r}:
 sys.exit(rc)
 """
 
-# the components whose children take their steps one at a time
-STAGED = {"--component=torch", "--component=perf"}
+# the components whose children take their steps one at a time (each
+# launches kernels: the workload pod's nccl check its train steps')
+STAGED = {"--component=torch", "--component=perf", "--component=nccl"}
 
 
 def child_stages(stdout: str, seconds: float, t0: float):
@@ -1408,13 +1563,15 @@ def script_argv(command: list, args: list) -> list:
     return [sys.executable, os.path.join(HERE, command[1]), *args]
 
 
-def pod_child(alloc: dict, cdi_root: str, command: list, args: list):
+def pod_child(alloc: dict, cdi_root: str, command: list, args: list,
+              env: dict = None):
     """The workload pod's container without a container runtime: the
-    command in :func:`child_argv`'s child with :func:`allocation_env`.
+    command in :func:`child_argv`'s child with the container's own
+    ``env`` (its paths already mapped) and :func:`allocation_env`.
     Returns (the finished child, its seconds, the names of the cards it
     saw, the launches, the split of its seconds where it was staged)."""
     argv = child_argv(command, args, stages=bool(STAGED & set(args)))
-    env = allocation_env(alloc, cdi_root, dict(os.environ))
+    env = allocation_env(alloc, cdi_root, dict(os.environ) | (env or {}))
     t0 = time.perf_counter()
     child = subprocess.run(argv, env=env, cwd=HERE, capture_output=True,
                            text=True, timeout=300)
@@ -1437,6 +1594,22 @@ def _check_pod_child(child, names, alloc: dict, raw: list) -> None:
              f"{child.returncode}, {child.stdout.strip()} "
              f"{child.stderr.strip()[-2000:]}")
     _require(names == want, f"the pod saw {names}, allocated {want}")
+
+
+def _check_workload_child(pod: dict, node_dir: str) -> None:
+    """The workload pod's child loaded the library from the node's build
+    dir (``node_dir``'s mapping of the pod's ``kernel-cache`` volume) with
+    no compile, and on one card its burn-in's two train steps launched the
+    matmul five times each and no other kernel (on more cards the ranks
+    are processes of their own)."""
+    stages, launches = pod["stages"], pod["launches"] or {}
+    _require(stages is not None and stages["kernel_cache_hit"]
+             and stages["build_root"].startswith(node_dir + os.sep),
+             f"the workload pod's child did not load the node's kernel "
+             f"build: {stages}, mounts {pod['mounts']}")
+    _require(len(pod["allocation"]["cards"]) > 1 or launches == dict(
+        dict.fromkeys(launches, 0), matmul_bf16_f32=10),
+        f"the in-pod nccl check launched {launches}, want 10 matmuls")
 
 
 def in_pod(alloc: dict, cdi_root: str, raw: list, seconds: dict) -> None:
@@ -1748,8 +1921,14 @@ class Kubelet(threading.Thread):
         live = self.client.get("Pod", md["name"], md["namespace"])
         live["status"] = {"phase": "Running"}
         self.client.update_status(live)  # noqa: TPULNT140 - plays the kubelet publishing pod status
+        # the container's env with the paths of its mapped volumes (the
+        # kernel build dir) rewritten
+        mounts = self.mounts_of(pod["spec"])
+        env = {e["name"]: self.map_path(str(e["value"]), mounts)
+               for e in ctr.get("env", [])}
+        self.child_envs.append(dict(env))
         child, secs, names, launches, stages = pod_child(
-            alloc, self.cdi_root, ctr["command"], ctr["args"])
+            alloc, self.cdi_root, ctr["command"], ctr["args"], env)
         live = self.client.get("Pod", md["name"], md["namespace"])
         live["status"] = ({"phase": "Succeeded"} if child.returncode == 0
                           else {"phase": "Failed", "message":
@@ -1760,7 +1939,7 @@ class Kubelet(threading.Thread):
             "args": ctr["args"], "requested": count, "preferred": chosen,
             "allocation": alloc, "child": child, "names": names,
             "launches": launches, "child_seconds": secs,
-            "stages": stages,
+            "stages": stages, "mounts": mounts,
             "seen_to_done_seconds": time.perf_counter() - t_seen})
 
     # ------------------------------------------- the DaemonSets' pods
@@ -2034,8 +2213,13 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
     :class:`Kubelet` advertising the plugin's devices and running the
     workload pod on the plugin's allocation, ``run_component("plugin")``
     at its own wait intervals, then feature discovery labelling the Node
-    twice (the second run must change nothing).  Returns the kernel
-    launches of the workload pod's child."""
+    twice (the second run must change nothing).  The node's kernel build
+    dir holds the library this run built, as the validator's ``torch``
+    container leaves it before ``plugin`` runs; the workload pod mounts
+    it, and its child must load that build (no compile) and launch the
+    matmul.  Returns the kernel launches of the workload pod's child."""
+    import torch
+
     from tpu_operator_torch import consts, statusfiles
     from tpu_operator_torch.client import metrics as client_metrics
     from tpu_operator_torch.client.resilience import (
@@ -2043,7 +2227,7 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
     from tpu_operator_torch.deviceplugin.sharing import DEFAULT_RESOURCE_NAME
     from tpu_operator_torch.fd.__main__ import main as fd_main
     from tpu_operator_torch.testing.stub_apiserver import StubApiServer
-    from tpu_operator_torch.validator import components
+    from tpu_operator_torch.validator import _build, components
 
     node_name = "h100-node-0"
     namespace = consts.DEFAULT_NAMESPACE
@@ -2053,8 +2237,13 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
     clients = [resilient_incluster_client(api_server=stub.url, token=t)
                for t in ("validator", "kubelet", "fd")]
     component_client = _Timed(clients[0])
+    node_dir = tempfile.mkdtemp(prefix="plugin-node")
+    lib = _build.build(torch.cuda.current_device())
+    shutil.copytree(lib.parent, os.path.join(
+        node_dir, "host", consts.BUILD_DIR_ON_NODE.strip("/"), "kernels",
+        lib.parent.name))
     kubelet = Kubelet(clients[1], endpoint, devices, node_name, namespace,
-                      DEFAULT_RESOURCE_NAME, cdi_root)
+                      DEFAULT_RESOURCE_NAME, cdi_root, tmp=node_dir)
     status_dir = tempfile.mkdtemp(prefix="plugin-status")
     before = client_metrics.lease_wait_totals()
     try:
@@ -2097,6 +2286,7 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
             c.close()
         stub.shutdown()
         shutil.rmtree(status_dir, ignore_errors=True)
+        shutil.rmtree(node_dir, ignore_errors=True)
 
     _require(kubelet.error is None, f"the kubelet failed: {kubelet.error!r}")
     _require(not kubelet.is_alive(), "the kubelet thread did not stop")
@@ -2128,6 +2318,7 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
         "allocation": {k: pod["allocation"][k]
                        for k in ("cdi_devices", "envs", "cards")},
         "names": pod["names"], "child_launches": pod["launches"],
+        "child_stages": pod["stages"], "child_mounts": pod["mounts"],
         "child_rc": child.returncode,
         "child_stdout": child.stdout.strip()[-1500:],
         "child_stderr": child.stderr.strip()[-1500:] if child.returncode
@@ -2165,9 +2356,7 @@ def plugin_component(endpoint: PluginEndpoint, devices: list, native: list,
              f"the pod requested {pod['requested']}, preferred "
              f"{pod['preferred']}")
     _check_pod_child(child, pod["names"], pod["allocation"], raw)
-    _require(pod["launches"] is not None
-             and not any(pod["launches"].values()),
-             f"the in-pod nccl check launched kernels: {pod['launches']}")
+    _check_workload_child(pod, node_dir)
     inv = endpoint.host.discover()
     want = {consts.TFD_LABEL_CHIP: inv.chip_type,
             consts.TFD_LABEL_TYPE: inv.accelerator_type,
@@ -2886,7 +3075,8 @@ OPERATOR_RUN = ("gpu-driver-daemonset", "gpu-container-toolkit-daemonset",
                 "gpu-operator-validator")
 # the writable hostPath volumes, each mapped to a temporary dir: the status
 # files, the CDI spec and the containerd configs
-OPERATOR_MAPPED_VOLUMES = ("run-gpu", "cdi-root", "containerd-conf")
+OPERATOR_MAPPED_VOLUMES = ("run-gpu", "cdi-root", "containerd-conf",
+                           "kernel-cache")
 # the component label of the driver DaemonSets, the policy's and each
 # GPUDriver's (consts.DRIVER_COMPONENT_LABEL_VALUE)
 DRIVER_COMPONENT = "gpu-driver"
@@ -3807,7 +3997,7 @@ def operator(torch, ops) -> dict:
         marked = list(kubelet.marked)
         workload_pods = list(kubelet.pods)
         launches = {name: 0 for name in ops.LAUNCHES}
-        for r in init_records:
+        for r in init_records + workload_pods:
             for name, n in (r["launches"] or {}).items():
                 launches[name] += n
         for name, n in ops.LAUNCHES.items():
@@ -3850,7 +4040,7 @@ def operator(torch, ops) -> dict:
                                                "stages")}
                             for r in init_records],
         "workload_pods": [{k: p[k] for k in ("name", "args", "launches",
-                                             "child_seconds")}
+                                             "child_seconds", "stages")}
                           for p in workload_pods],
         "containerd_restarts": restarts,
         "pass_seconds": [p["seconds"] for p in passes],
@@ -3870,6 +4060,7 @@ def operator(torch, ops) -> dict:
     _require(kubelet.error is None, f"the kubelet failed: {kubelet.error!r}")
     _require(len(workload_pods) == 1 and workload_pods[0]["child"]
              .returncode == 0, f"the workload pods: {workload_pods}")
+    _check_workload_child(workload_pods[0], tmp)
     _require(all(e["rc"] is not None for e in exits),
              f"a container outlived the phase: {exits}")
     moved = sorted(p for p in set(host_after) | set(host_before)
@@ -6092,9 +6283,14 @@ def drive_main_path(torch, ops, microbench) -> dict:
     params, x, y = args
     ref = float(forward({k: v.cpu() for k, v in params.items()},
                         x.cpu(), y.cpu()))
-    print(json.dumps({"entry_loss": loss, "entry_loss_cpu": ref}), flush=True)
+    print(json.dumps({"entry_loss": loss, "entry_loss_cpu": ref,
+                      "entry_launches": legs["entry"]}), flush=True)
     _require(math.isfinite(loss) and math.isclose(loss, ref, rel_tol=1e-5),
              f"entry() loss {loss} vs CPU {ref}")
+    _require(legs["entry"] == dict(dict.fromkeys(legs["entry"], 0),
+                                   matmul_bf16_f32=2),
+             f"entry()'s forward launched {legs['entry']}, want its two "
+             "products on the matmul kernel")
     return legs
 
 
@@ -6134,18 +6330,27 @@ def _attention_rank(ring_qkv, ulysses_qkv) -> tuple:
     return ring.cpu().numpy(), uly.cpu().numpy()
 
 
+# train steps a _burn_in_rank takes: its own three and the burn-in's
+BURN_IN_RANK_STEPS = 3 + 3
+# matmul launches of one train step on a rank: two products forward,
+# three backward (dW2, dh, dW1)
+STEP_MATMULS = 5
+
+
 def _burn_in_rank() -> tuple:
     """The losses of three sharded train steps on the default mesh (the
-    slice burn-in's), and the burn-in's own report."""
-    from tpu_operator_torch.validator import workloads as wl
+    slice burn-in's), the burn-in's own report (three steps more) and this
+    rank's kernel launches."""
+    from tpu_operator_torch.validator import ops, workloads as wl
 
+    ops.reset_launches()
     mesh = wl.make_mesh()
     step, params, (x, y) = wl.sharded_train_step(mesh)
     losses = []
     for _ in range(3):
         loss, params = step(params, x, y)
         losses.append(float(loss))
-    return losses, wl.slice_burn_in(mesh)
+    return losses, wl.slice_burn_in(mesh, steps=3), dict(ops.LAUNCHES)
 
 
 def _full_rank() -> tuple:
@@ -6208,22 +6413,35 @@ def collectives(torch, ops) -> dict:
     _require(all(gap <= 1e-5 for gap in gaps.values()),
              f"attention on the card vs the CPU: {gaps}")
 
-    card_losses, card_rep = leg("burn_in_card", lambda: _dist.spawn(
-        world, _burn_in_rank, "cuda"))
-    cpu_losses, _ = _dist.spawn(world, _burn_in_rank, "cpu")
+    card_losses, card_rep, rank_launches = leg(
+        "burn_in_card", lambda: _dist.spawn(world, _burn_in_rank, "cuda"))
+    legs["burn_in_card"] = rank_launches  # rank 0's own: on more than one
+    # card its launches happen in another process
+    cpu_losses, _, _ = _dist.spawn(world, _burn_in_rank, "cpu")
     print(json.dumps({"slice_burn_in": {
         "card_losses": card_losses, "cpu_losses": cpu_losses,
-        "report": card_rep.to_dict()}}), flush=True)
+        "report": card_rep.to_dict(), "rank0_launches": rank_launches}}),
+        flush=True)
     _require(card_rep.ok and all(
         math.isclose(a, b, rel_tol=1e-4)
         for a, b in zip(card_losses, cpu_losses)),
         f"slice burn-in on the card {card_losses} vs CPU {cpu_losses}")
+    _require(rank_launches == dict(
+        dict.fromkeys(rank_launches, 0),
+        matmul_bf16_f32=STEP_MATMULS * BURN_IN_RANK_STEPS),
+        f"a burn-in rank's {BURN_IN_RANK_STEPS} train steps launched "
+        f"{rank_launches}, want {STEP_MATMULS} matmuls a step and nothing "
+        "else")
 
     with tempfile.TemporaryDirectory() as status_dir:
         rc = leg("nccl_component", lambda: validator_main(
             ["--component=nccl", f"--status-dir={status_dir}"]))
         _require(rc == 0, f"--component=nccl exited {rc}")
         ready = statusfiles.read_status("nccl-ready", status_dir)
+    # on one card the component's burn-in (two steps) runs in this process
+    _require(world > 1 or legs["nccl_component"]["matmul_bf16_f32"]
+             == 2 * STEP_MATMULS,
+             f"--component=nccl launched {legs['nccl_component']}")
     print(json.dumps({"component": "nccl", "seconds": seconds["nccl_component"],
                       "nccl_ready": ready}), flush=True)
     _require(ready is not None and ready.get("devices") == str(world),
@@ -6242,6 +6460,8 @@ def collectives(torch, ops) -> dict:
              f"run_full_validation: {[(r.name, r.ok, r.detail) for r in reports]}")
 
     leg("dryrun", lambda: dryrun_multigpu(world))
+    _require(world > 1 or legs["dryrun"]["matmul_bf16_f32"] == STEP_MATMULS,
+             f"dryrun_multigpu's train step launched {legs['dryrun']}")
     print(json.dumps({"collectives_seconds": seconds}), flush=True)
     return legs
 
@@ -6257,7 +6477,10 @@ def main_path(torch, _build, ops, microbench, workloads) -> list:
     check_sass(_build, lib)
     triad_resources(_build)
 
+    t_checks = time.perf_counter()
     records = check_kernels(torch, ops, microbench)
+    print(json.dumps({"kernel_checks_seconds":
+                      time.perf_counter() - t_checks}), flush=True)
     torch_component_rates(workloads)
     graph_chains(torch, ops, workloads)
     perf_gate(torch, microbench, probe_chain_profile(torch, workloads))
@@ -6267,8 +6490,9 @@ def main_path(torch, _build, ops, microbench, workloads) -> list:
     launches = {name: sum(leg[name] for leg in legs.values())
                 for name in ops.LAUNCHES}
     for name, rec in records.items():
-        rec["launches"] = launches[name]
-        rec["launches_by_leg"] = {leg: counts[name]
+        route = rec.get("counted_as", name)
+        rec["launches"] = launches[route]
+        rec["launches_by_leg"] = {leg: counts[route]
                                   for leg, counts in legs.items()}
     idle = [name for name, count in launches.items() if count == 0]
     _require(not idle, f"kernels never launched on the main path: {idle}")

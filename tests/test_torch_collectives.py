@@ -288,14 +288,24 @@ def test_ulysses_attention_matches_jax(family, port_2d, port_flat,
 
 def test_sharded_train_step_matches_jax(port_2d, jax_train):
     """Three dp×tp steps of each, from the JAX package's weights and batch.
-    Measured on the CPU: losses within 1.1e-6 relative, updated weights
-    within 3.1e-7 (they moved 4.4e-4).  Leaving the gradients unrounded
-    gave 3.9e-6 / 7.0e-7, rounding each data shard's before the sum 7.4e-6
-    / 8.9e-7: JAX rounds the summed gradient to bf16, as the port does."""
+    Measured on the CPU with the products on the matmul wrapper (its plain
+    version, the backward's cotangent split into three bf16 terms): losses
+    within 1.08e-6 relative, updated weights within 3.05e-7 (they moved
+    4.4e-4).  With the products in plain f32 it was 1.1e-6 / 3.1e-7;
+    leaving the gradients unrounded gave 3.9e-6 / 7.0e-7, rounding each
+    data shard's before the sum 7.4e-6 / 8.9e-7: JAX rounds the summed
+    gradient to bf16, as the port does."""
     got = port_2d["train"]
     np.testing.assert_allclose(got["losses"], jax_train[4], rtol=1e-4)
     assert got["param_gap"] <= 1e-4
     assert all(b < a for a, b in zip(got["losses"], got["losses"][1:]))
+
+
+def test_sharded_train_step_calls_the_matmul_five_times_per_rank(port_2d):
+    """Every product of a step goes through the matmul kernel's wrapper:
+    two forward, three backward (dW2, dh, dW1; none for x), on each of the
+    8 ranks."""
+    assert port_2d["step_matmul_calls"] == [5] * 8
 
 
 def test_sharded_train_step_loss_decreases(port_2d):

@@ -6,9 +6,10 @@ Key map: the resource ``google.com/tpu`` <-> ``nvidia.com/gpu`` (the device
 plugin's), the pod's command ``tpu_operator.validator --component=ici`` <->
 ``tpu_operator_torch.validator --component=nccl``; the pod's name, label,
 container name, namespace and env under ``torch_keymap.RENAMED``.  The JAX
-pod's compile-cache env, mount and volume have no counterpart: the in-pod
-nccl check calls none of the port's kernels, so nothing is built in the
-pod."""
+pod's compile cache (``JAX_COMPILATION_CACHE_DIR``, its ``jax-cache``
+hostPath) is the port's kernel build dir (``consts.BUILD_DIR_ENV``,
+``consts.BUILD_DIR_ON_NODE``, ``kernel-cache``): the in-pod nccl check
+launches the matmul kernel, and loads the library the validator built."""
 
 import threading
 import time
@@ -197,41 +198,62 @@ def test_workload_pod_spec_matches_jax_under_the_key_map(tmp_path,
             RESOURCES[k]: v for k, v in ctr["resources"][section].items()}
     want["spec"]["tolerations"][0]["key"] = RESOURCES[
         want["spec"]["tolerations"][0]["key"]]
-    # the cache-mount decision: the JAX pod's cache env, mount and volume
-    # have no counterpart in the port's pod
+    # the cache: the JAX compile cache's env, mount and volume are the
+    # kernel build dir's
     assert ctr["env"][0] == {"name": "JAX_COMPILATION_CACHE_DIR",
                              "value": JAX_CACHE}
-    del ctr["env"][0]
-    assert ctr.pop("volumeMounts") == [{"name": "jax-cache",
-                                        "mountPath": JAX_CACHE}]
-    assert want["spec"].pop("volumes")[0]["hostPath"]["path"] == JAX_CACHE
+    ctr["env"][0] = dict(km.BUILD_DIR_ENV)
+    assert ctr["volumeMounts"] == [{"name": "jax-cache",
+                                    "mountPath": JAX_CACHE}]
+    ctr["volumeMounts"][0]["mountPath"] = consts.BUILD_DIR_ON_NODE
+    (volume,) = want["spec"]["volumes"]
+    assert volume["hostPath"] == {"path": JAX_CACHE,
+                                  "type": "DirectoryOrCreate"}
+    volume["hostPath"]["path"] = consts.BUILD_DIR_ON_NODE
     assert got == km.renamed(want)
     gctr = got["spec"]["containers"][0]
     assert gctr["command"] == ["python", "-m", "tpu_operator_torch.validator"]
     assert gctr["args"] == ["--component=nccl", "--in-pod"]
     assert gctr["env"] == [
+        {"name": "TPU_OPERATOR_TORCH_BUILD_DIR", "value": "/run/gpu/build"},
         {"name": "GPU_MULTISLICE_COORDINATOR_ADDRESS", "value": "10.0.0.1"},
         {"name": "GPU_MULTISLICE_NUM_SLICES", "value": "2"}]
-    assert "volumeMounts" not in gctr and "volumes" not in got["spec"]
+    # only the build dir: the status files stay out of the pod's reach
+    assert gctr["volumeMounts"] == [{"name": "kernel-cache",
+                                     "mountPath": "/run/gpu/build"}]
+    assert got["spec"]["volumes"] == [{"name": "kernel-cache", "hostPath": {
+        "path": "/run/gpu/build", "type": "DirectoryOrCreate"}}]
+    assert not consts.DEFAULT_STATUS_DIR.startswith(consts.BUILD_DIR_ON_NODE)
     assert got["metadata"] == {"name": "gpu-validation-workload-node-0",
                                "namespace": "gpu-operator",
                                "labels": {"app": "gpu-validation-workload"}}
 
 
-def test_in_pod_nccl_calls_no_kernel_wrapper(tmp_path, monkeypatch):
-    """Why the pod needs no kernel cache: the in-pod nccl check on one
-    card (the burn-in) never reaches a kernel wrapper."""
+def test_in_pod_nccl_calls_the_matmul_wrapper(tmp_path, monkeypatch):
+    """Why the pod mounts the kernel build dir: the in-pod nccl check on
+    one card (the burn-in, two train steps) calls the matmul kernel's
+    wrapper five times a step, and no other kernel's; it writes no status
+    file."""
     from tpu_operator_torch.validator import ops
 
-    def no_kernel(*a, **k):
-        raise AssertionError("the in-pod nccl check called a kernel")
+    calls = []
+    inner = ops.matmul_bf16_f32
 
-    for name in ("matmul_bf16_f32", "triad_", "fma_relu"):
+    def counting(*args, **kwargs):
+        calls.append(kwargs.get("kt", 0))
+        return inner(*args, **kwargs)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("the in-pod nccl check called another kernel")
+
+    monkeypatch.setattr(ops, "matmul_bf16_f32", counting)
+    for name in ("triad_", "fma_relu"):
         monkeypatch.setattr(ops, name, no_kernel)
     values = components.run_component(
         "nccl", components.Context(status_dir=str(tmp_path), device="cpu",
                                    world=1), in_pod=True)
     assert values["devices"] == "1"
+    assert calls == [0] * 10
     assert list(tmp_path.iterdir()) == []
 
 

@@ -12,7 +12,7 @@ import warnings
 import torch
 import torch.distributed as dist
 
-from tpu_operator_torch.validator import _dist, workloads as wl
+from tpu_operator_torch.validator import _dist, ops, workloads as wl
 
 
 def _train_parity(params, x, y, want_params, steps):
@@ -32,6 +32,27 @@ def _train_parity(params, x, y, want_params, steps):
                        dtype=torch.float64)
     dist.all_reduce(gap, op=dist.ReduceOp.MAX)
     return {"losses": losses, "param_gap": float(gap)}
+
+
+def _step_matmul_calls():
+    """How many times one sharded step on a (4, 2) mesh calls the matmul
+    kernel's wrapper, on each rank (on the CPU the wrapper runs its plain
+    version, which ``ops.LAUNCHES`` does not count)."""
+    calls, inner = [0], ops.matmul_bf16_f32
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return inner(*args, **kwargs)
+
+    step, p, (x, y) = wl.sharded_train_step(wl.make_mesh((4, 2)))
+    ops.matmul_bf16_f32 = counting
+    try:
+        step(p, x, y)
+    finally:
+        ops.matmul_bf16_f32 = inner
+    held = [None] * dist.get_world_size()
+    dist.all_gather_object(held, calls[0])
+    return held
 
 
 def mesh_2d(ring_qkv, ulysses_qkv, train):
@@ -65,6 +86,7 @@ def mesh_2d(ring_qkv, ulysses_qkv, train):
     for n_slices in (2, 4, 3):
         out[f"dcn_{n_slices}"] = wl.dcn_multislice_check(n_slices=n_slices)
     out["train"] = _train_parity(*train)
+    out["step_matmul_calls"] = _step_matmul_calls()
     small = wl.make_mesh((4, 2))
     step, p, (x, y) = wl.sharded_train_step(small, d_in=16, d_hidden=32,
                                             batch_per_device=2)

@@ -117,6 +117,8 @@ RENAMED = {
     # host paths, status files, reports
     "/run/tpu": "/run/gpu",
     "run-tpu": "run-gpu",
+    # the workload pod's volume of the build dir (its JAX compile cache)
+    "jax-cache": "kernel-cache",
     "ici-degraded": "gpu-degraded",
     "ici_degraded": "gpu_degraded",
     "ici-bandwidth": "nccl-bandwidth",

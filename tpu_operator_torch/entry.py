@@ -4,14 +4,16 @@ dry run.
 ``entry()`` is the counterpart of ``__graft_entry__.entry()``: the
 validator's burn-in MLP (bf16 inputs, f32 products, MSE loss) with random
 weights made from fixed seeds, on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  Its two products run on the tensor-core matmul kernel
+(``validator.ops.MatmulBf16F32``), as JAX's run on the MXU.
 
 ``dryrun_multigpu(n)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip(n)``: ``n`` ranks (NCCL, one per card;
 gloo ranks with ``device="cpu"``), the dp×tp training step on the default
-mesh at tiny shapes, then ring and Ulysses attention, the hierarchical
-multislice all-reduce (n even), expert-parallel all_to_all and the pipeline
-handoff — every parallelism family once.
+mesh at tiny shapes (its products forward and backward on the same
+kernel), then ring and Ulysses attention, the hierarchical multislice
+all-reduce (n even), expert-parallel all_to_all and the pipeline handoff —
+every parallelism family once.
 """
 
 from __future__ import annotations

@@ -251,14 +251,21 @@ def _wait_for_resource(ctx: Context, client) -> int:
         f"capacity after {RESOURCE_WAIT_RETRIES * RESOURCE_WAIT_SLEEP_S:.0f}s")
 
 
+# the workload pod's volume of the node's kernel build dir
+KERNEL_CACHE_VOLUME = "kernel-cache"
+
+
 def _workload_pod_spec(ctx: Context, cards: int) -> dict:
     """The plugin-workload pod: requests the cards and runs the nccl
-    validation in-pod.  Unlike the JAX pod it mounts no compile cache and
-    sets no cache variable: the in-pod nccl check launches none of the
-    port's kernels (its burn-in runs f32 outside them), so nothing is
-    built in the pod.  ``GPU_MULTISLICE_*`` from the validator's own env
-    is forwarded so the in-pod check runs the multislice path on
-    multislice deployments."""
+    validation in-pod.  Its burn-in launches the matmul kernel, so the pod
+    mounts the node's kernel build dir (``consts.BUILD_DIR_ON_NODE``, where
+    the validator's ``torch`` container built the library) and points
+    ``consts.BUILD_DIR_ENV`` at it, as the JAX pod mounts its compile
+    cache: the pod loads that build instead of compiling in a throwaway
+    container.  ONLY the build dir is mounted: the status files under
+    ``/run/gpu/validations`` stay out of the pod's reach.
+    ``GPU_MULTISLICE_*`` from the validator's own env is forwarded so the
+    in-pod check runs the multislice path on multislice deployments."""
     name = f"gpu-validation-workload-{ctx.node_name}"
     return {
         "apiVersion": "v1", "kind": "Pod",
@@ -272,14 +279,21 @@ def _workload_pod_spec(ctx: Context, cards: int) -> dict:
                 "image": ctx.validator_image,
                 "command": ["python", "-m", "tpu_operator_torch.validator"],
                 "args": ["--component=nccl", "--in-pod"],
-                "env": [{"name": k, "value": v}
-                        for k, v in sorted(os.environ.items())
-                        if k.startswith("GPU_MULTISLICE_")],
+                "env": [{"name": consts.BUILD_DIR_ENV,
+                         "value": consts.BUILD_DIR_ON_NODE}]
+                + [{"name": k, "value": v}
+                   for k, v in sorted(os.environ.items())
+                   if k.startswith("GPU_MULTISLICE_")],
+                "volumeMounts": [{"name": KERNEL_CACHE_VOLUME,
+                                  "mountPath": consts.BUILD_DIR_ON_NODE}],
                 "resources": {
                     "limits": {ctx.resource_name: str(cards)},
                     "requests": {ctx.resource_name: str(cards)},
                 },
             }],
+            "volumes": [{"name": KERNEL_CACHE_VOLUME,
+                         "hostPath": {"path": consts.BUILD_DIR_ON_NODE,
+                                      "type": "DirectoryOrCreate"}}],
             "tolerations": [{"key": ctx.base_resource_name,
                              "operator": "Exists",
                              "effect": "NoSchedule"}],

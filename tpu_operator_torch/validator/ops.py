@@ -20,14 +20,21 @@ device, so the CPU tests reject what the card would, allocates its outputs
 with ``torch.empty`` and launches on the current stream without
 synchronising.  ``LAUNCHES`` counts kernel launches (never plain-version
 calls), so a run can show it went through the kernels.
+
+Products of any shape go through :func:`matmul_any` (zero-padded to the
+kernel's tiles) and, with a gradient, :class:`MatmulBf16F32`: the
+counterpart of JAX's ``jnp.dot(bf16, bf16, preferred_element_type=f32)``
+and its transpose, forward and backward on the matmul kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator
+import functools
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -131,6 +138,142 @@ def matmul_bf16_f32(a: torch.Tensor, b: torch.Tensor, kt: int = 0,
     _build.check(lib, err, "matmul_bf16_f32")
     LAUNCHES["matmul_bf16_f32_kblocked" if kt else "matmul_bf16_f32"] += 1
     return out
+
+
+# the H100 SXM's SM count: what the block rule assumes for a tensor on the
+# CPU, so that the CPU pads a product as the card would
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA ``device``; :data:`H100_SMS` for the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return H100_SMS
+    return _cuda_sms(torch.cuda.current_device() if device.index is None
+                     else device.index)
+
+
+def matmul_block(m: int, n: int, sms: int) -> int:
+    """The block tile for an m x n product on a card of ``sms`` SMs: 128
+    where 128-tiles alone give every SM a block, else 64 (four times the
+    blocks).  Set from the H100 (132 SMs, K = m = n): block 64 took 3.19,
+    4.41 and 9.71 µs at 256^2, 512^2 and 1024^2 where 128 took 5.04, 6.84
+    and 10.52; at 2048^2 block 128 took 35.37 µs and 64 took 65.62
+    (PERF.md §6)."""
+    tiles = -(-m // 128) * -(-n // 128)
+    return 128 if tiles >= sms else 64
+
+
+def _round_up(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+def _buffer(rows: int, cols: int, device: torch.device) -> torch.Tensor:
+    """An uninitialised bf16 kernel operand (the padding is written
+    explicitly)."""
+    return torch.empty((rows, cols), dtype=torch.bfloat16, device=device)
+
+
+def _operand(blocks: Sequence[torch.Tensor], along: int, rows: int,
+             cols: int) -> torch.Tensor:
+    """A contiguous bf16 ``rows`` x ``cols`` operand of the kernel:
+    ``blocks`` (2-D, bf16-valued, of any float dtype and strides) laid end
+    to end along dim ``along`` from the top-left corner, zeros everywhere
+    else."""
+    first = blocks[0]
+    out = _buffer(rows, cols, first.device)
+    at = 0
+    for blk in blocks:
+        if along == 0:
+            out[at:at + blk.shape[0], :blk.shape[1]].copy_(blk)
+            at += blk.shape[0]
+        else:
+            out[:blk.shape[0], at:at + blk.shape[1]].copy_(blk)
+            at += blk.shape[1]
+    r, c = (at, first.shape[1]) if along == 0 else (first.shape[0], at)
+    out[r:].zero_()
+    out[:r, c:].zero_()
+    return out
+
+
+def matmul_blocks(a_blocks: Sequence[torch.Tensor],
+                  b_blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sum_i A_i . B_i in f32 by ONE launch of the matmul kernel: the
+    bf16-valued A_i (m x k_i) laid end to end along K against the B_i
+    (k_i x n), zero-padded to the tiles — m and n to the block
+    :func:`matmul_block` picks, K to the K-step (zeros add nothing, so the
+    padding is exact) — and the m x n result cut out of the padded one."""
+    if len(a_blocks) != len(b_blocks) or not a_blocks:
+        raise ValueError("matmul_blocks: one B block per A block")
+    m, n = a_blocks[0].shape[0], b_blocks[0].shape[1]
+    for a, b in zip(a_blocks, b_blocks):
+        if (a.dim() != 2 or b.dim() != 2 or a.shape[0] != m
+                or b.shape[1] != n or a.shape[1] != b.shape[0]):
+            raise ValueError(f"matmul_blocks: {tuple(a.shape)} x "
+                             f"{tuple(b.shape)} in an {m} x {n} product")
+    k = sum(a.shape[1] for a in a_blocks)
+    if not (m and n and k):
+        raise ValueError(f"matmul_blocks: empty product {m}x{k}x{n}")
+    block = matmul_block(m, n, sm_count(a_blocks[0].device))
+    mp, np_, kp = (_round_up(m, block), _round_up(n, block),
+                   _round_up(k, DEFAULT_KSTEP))
+    out = matmul_bf16_f32(_operand(a_blocks, 1, mp, kp),
+                          _operand(b_blocks, 0, kp, np_), block=block)
+    return out if (mp, np_) == (m, n) else out[:m, :n]
+
+
+def matmul_any(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A . B in f32 for bf16-valued A (m x k) and B (k x n) of any
+    positive shape, on the matmul kernel (:func:`matmul_blocks`)."""
+    return matmul_blocks([a], [b])
+
+
+def split_bf16x3(g: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``g`` as three bf16 terms with hi + mid + lo == g: each the bf16
+    rounding of what the terms before it left.  Exact wherever the
+    residuals stay in bf16's normal range (8 + 8 + 8 bits hold f32's 24)."""
+    hi = g.bfloat16()
+    rest = g - hi.float()
+    mid = rest.bfloat16()
+    return hi, mid, (rest - mid.float()).bfloat16()
+
+
+class MatmulBf16F32(torch.autograd.Function):
+    """``jnp.dot(a.astype(bf16), b.astype(bf16), preferred_element_type=
+    f32)`` for bf16-valued ``a`` and ``b`` (its bf16 casts stay with the
+    caller), with its gradient, every product on the matmul kernel.
+
+    Forward: one launch.  Backward: ``g . B^T`` and ``A^T . g``, one launch
+    each and only where asked.  JAX's transpose multiplies the f32
+    cotangent ``g`` by the bf16 operand in f32; rounding ``g`` to bf16
+    first would be another program, so ``g`` goes in as its three bf16
+    terms (:func:`split_bf16x3`) laid along K against the operand stacked
+    three times — bf16 x bf16 products are exact in f32, so the sum is the
+    f32 x bf16 product to f32 accuracy.  The transposed operands are copied
+    into the padded buffers."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return matmul_any(a, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        terms = split_bf16x3(g.float())
+        da = (matmul_blocks(terms, [b.t()] * 3)
+              if ctx.needs_input_grad[0] else None)
+        db = (matmul_blocks([a.t()] * 3, terms)
+              if ctx.needs_input_grad[1] else None)
+        return da, db
 
 
 # --------------------------------------------------------------------------

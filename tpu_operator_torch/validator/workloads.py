@@ -11,7 +11,8 @@ Single device:
 * :func:`hbm_stress` — a STREAM-triad chain over device memory; reports
   GiB/s (3 streams per element per pass).
 * :func:`init_mlp_params` / :func:`_mlp_loss` — the flagship forward step
-  that ``tpu_operator_torch.entry.entry()`` runs.
+  that ``tpu_operator_torch.entry.entry()`` runs: bf16 operands, f32
+  products on the tensor-core kernel (``ops.MatmulBf16F32``).
 
 These take an explicit ``device``: ``"cuda"`` unless the caller asks for
 ``"cpu"``, where the kernels' plain versions run (the parity tests).  On the
@@ -120,11 +121,15 @@ def _burn_in_fn(x: torch.Tensor, w: torch.Tensor, iters: int,
     """Chained bf16 products with f32 results and a renormalisation — keeps
     the tensor cores busy and yields a value-dependent checksum so silent
     corruption surfaces.  ``block``/``kt`` pick the kernel's tiling (block
-    defaults to the largest that divides the size); the microbench's matmul
-    chain is this function at the probe's tiling.  On the card the chain
+    defaults to ``ops.matmul_block``'s for the size and the card, 64 where
+    that does not divide it); the microbench's matmul chain is this
+    function at the probe's tiling.  On the card the chain
     replays through ``graphs`` (one of its own where None is given)."""
     if block is None:
-        block = 128 if x.shape[0] % 128 == 0 else 64
+        block = ops.matmul_block(x.shape[0], w.shape[1],
+                                 ops.sm_count(x.device))
+        if x.shape[0] % block or w.shape[1] % block:
+            block = 64
 
     def step(acc: torch.Tensor) -> torch.Tensor:
         return _burn_in_step(acc, w, block, kt)
@@ -292,10 +297,11 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 def _mlp_loss(params: Dict[str, torch.Tensor], x: torch.Tensor,
               y: torch.Tensor) -> torch.Tensor:
     """tanh MLP + mean squared error, with the JAX step's bf16 inputs and
-    f32 products: operands are rounded to bf16 and multiplied in f32."""
-    with ops.no_tf32():
-        h = torch.tanh(_bf16(x) @ _bf16(params["w1"]))
-        out = _bf16(h) @ _bf16(params["w2"])
+    f32 products: operands are rounded to bf16 and multiplied with f32
+    results on the tensor-core kernel (``ops.MatmulBf16F32``)."""
+    matmul = ops.MatmulBf16F32.apply
+    h = torch.tanh(matmul(_bf16(x), _bf16(params["w1"])))
+    out = matmul(_bf16(h), _bf16(params["w2"]))
     return torch.mean((out - y) ** 2)
 
 
@@ -798,7 +804,7 @@ def dcn_multislice_check(mesh: Optional[DeviceMesh] = None,
 
 
 # --------------------------------------------------------------------------
-# sharded training step (slice burn-in: f32 products + memory + NCCL)
+# sharded training step (slice burn-in: tensor cores + memory + NCCL)
 # --------------------------------------------------------------------------
 
 class _SumOverGroup(torch.autograd.Function):
@@ -865,10 +871,11 @@ def sharded_train_step(mesh: DeviceMesh, d_in: int = 128, d_hidden: int = 256,
     both weights over ``model`` (``w1`` by columns, ``w2`` by rows), so a
     step runs the two products, an all-reduce of the activations over
     ``model`` (tp) and of the gradients over ``data`` (dp).  The products
-    take bf16-rounded operands and multiply them in full f32 (TF32 off), so
-    they run on the CUDA cores, not the tensor cores.  The loss
-    is the global batch's mean, and the update ``p - lr·g`` is
-    ``jax.value_and_grad`` of it.  Returns ``(step_fn, params, batch)``
+    take bf16-rounded operands with f32 results on the tensor-core kernel,
+    forward and backward (``ops.MatmulBf16F32``: two products forward,
+    three backward — no gradient of ``x``), as JAX's step runs them on the
+    MXU.  The loss is the global batch's mean, and the update ``p - lr·g``
+    is ``jax.value_and_grad`` of it.  Returns ``(step_fn, params, batch)``
     with this rank's shards; callers run ``step_fn(params, *batch)`` ->
     ``(loss, new_params)``."""
     data_group = mesh.get_group(_all_axes(mesh)[0])
@@ -888,9 +895,9 @@ def sharded_train_step(mesh: DeviceMesh, d_in: int = 128, d_hidden: int = 256,
         # summed over data, then rounded (the transpose of the bf16 cast),
         # in the order of JAX's partitioned program
         leaves = {k: _bf16(p).requires_grad_() for k, p in params.items()}
-        with ops.no_tf32():
-            h = torch.tanh(_bf16(x) @ leaves["w1"])
-            out = _bf16(h) @ leaves["w2"]
+        matmul = ops.MatmulBf16F32.apply
+        h = torch.tanh(matmul(_bf16(x), leaves["w1"]))
+        out = matmul(_bf16(h), leaves["w2"])
         if model_group is not None:
             out = _SumOverGroup.apply(out, model_group)
         loss = ((out - y) ** 2).sum() / (rows * y.shape[1])
@@ -910,8 +917,8 @@ def sharded_train_step(mesh: DeviceMesh, d_in: int = 128, d_hidden: int = 256,
 def slice_burn_in(mesh: Optional[DeviceMesh] = None,
                   steps: int = 3) -> ValidationReport:
     """A few sharded train steps; the loss must be finite and strictly
-    decrease — a functional check of the node's f32 compute, memory and
-    NCCL together (the step's products do not reach the tensor cores)."""
+    decrease — a functional check of the node's tensor cores (every product
+    of the step on the matmul kernel), memory and NCCL together."""
     mesh = make_mesh() if mesh is None else mesh
     step, params, (x, y) = sharded_train_step(mesh)
     _warm(mesh)
