@@ -33,6 +33,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end benchmarks")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA H100 (skipped without one); on "
+        "the card: python -m pytest tests -m card")
 
 
 # ---------------------------------------------------------------------------

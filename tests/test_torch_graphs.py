@@ -198,3 +198,31 @@ def test_cpu_chains_stay_eager():
     assert torch.equal(a, torch.full((8, 2048), 1.5))      # left intact
     assert np.allclose(wl._triad_chain(a[0], b[0], 37).numpy(), 8.0 / 3.0)
     assert FakeGraph.made == [] and set(ops.LAUNCHES.values()) == {0}
+
+
+def test_spans_of_a_capture_and_a_release():
+    """With the tracer on: one ``validator.graphs.capture`` span for the
+    key (its kind, the key's first item) and one ``release`` at close (the
+    graphs released); none per run or replay, and no release where nothing
+    was captured."""
+    from tpu_operator_torch.obs import trace
+
+    step, start, kernel = _chains()["stress"]
+    trace.reset()
+    trace.configure(enabled=True)
+    try:
+        with trace.root_span("case"):
+            with graphs.ChainGraphs() as cg:
+                for n in (K - 1, 2 * K + 3, K):
+                    cg.run(("stress", 7), step, start, n)
+            with graphs.ChainGraphs():
+                pass                      # nothing captured: no release
+        (tr,) = trace.snapshot(1)["recent"]
+    finally:
+        trace.reset()
+    got = [(s["name"], s["attrs"]) for s in tr["spans"][1:]]
+    assert got == [
+        ("validator.graphs.capture", {"kind": "stress"}),
+        ("validator.graphs.release", {"graphs": 1}),
+    ]
+    assert [g.replays for g in FakeGraph.made] == [3]

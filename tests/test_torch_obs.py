@@ -83,6 +83,31 @@ def test_trace_tree_matches_jax():
         "pass": 1, "client.get": 1, "queue.wait": 1, "client.update": 1}
 
 
+def test_exact_clocks_and_span_or_root():
+    """The port's additions: a finished span keeps its monotonic and
+    wall-clock bounds unrounded; ``span_or_root`` opens a root where no span
+    is open and a child where one is."""
+    trace.configure(enabled=True)
+    before = time.time_ns()
+    with trace.span_or_root("phase") as root:
+        with trace.span_or_root("inner") as inner:
+            assert inner.parent_id == root.span_id
+    after = time.time_ns()
+    assert trace.span("orphan") is trace.NOOP_SPAN
+    (tr,) = trace.snapshot(1)["recent"]
+    assert [s["name"] for s in tr["spans"]] == ["phase", "inner"]
+    outer, inner = tr["spans"]
+    assert before <= outer["start_wall_ns"] <= inner["start_wall_ns"] \
+        <= inner["end_wall_ns"] <= outer["end_wall_ns"] <= after
+    for s in tr["spans"]:
+        assert s["end_mono"] - s["start_mono"] == pytest.approx(
+            s["duration_ms"] / 1000.0, abs=1e-6)
+    assert outer["parent_id"] == ""
+    with trace.span_or_root("alone"):
+        pass
+    assert trace.snapshot(1)["recent"][0]["name"] == "alone"
+
+
 @pytest.mark.parametrize("side", sorted(SIDES))
 def test_disabled_tracer_is_the_shared_noop(side):
     tr = SIDES[side][0]

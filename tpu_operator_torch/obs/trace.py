@@ -22,6 +22,10 @@ shared no-op span.
   returns the shared :data:`NOOP_SPAN` after one boolean check, so
   library consumers (node agents, CLIs) pay nothing.  :func:`configure`
   turns it on.
+* **Exact clocks.**  A finished span keeps its monotonic start and end
+  (``time.monotonic``: ``time.perf_counter``'s clock on Linux) and its
+  wall-clock start and end in Unix nanoseconds (``time.time_ns``, the
+  clock ``torch.profiler`` events carry), unrounded.
 
 Always-on side channels (cheap, tracing-independent): :func:`watch_stamp`
 timestamps event deliveries, and :class:`write_capture`/:func:`note_write`
@@ -110,9 +114,9 @@ class Span:
     once, at :meth:`end`."""
 
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "attrs", "events", "start_wall", "start_mono", "end_mono",
-                 "start_cpu", "cpu_s", "thread", "_token", "_ended",
-                 "_prev_active")
+                 "attrs", "events", "start_wall", "start_wall_ns",
+                 "end_wall_ns", "start_mono", "end_mono", "start_cpu",
+                 "cpu_s", "thread", "_token", "_ended", "_prev_active")
 
     recording = True
 
@@ -125,13 +129,15 @@ class Span:
         self.name = name
         self.attrs: Dict[str, Any] = dict(attrs or {})
         self.events: List[Tuple[float, str, dict]] = []
-        self.start_wall = time.time()
+        self.start_wall_ns = time.time_ns()
+        self.start_wall = self.start_wall_ns / 1e9
         self.start_mono = time.monotonic()
         # per-thread CPU clock: end() attributes the span's wall time to
         # cpu vs wait (wall - cpu) — only valid because a span begins and
         # ends on the thread that opened it (the class contract above)
         self.start_cpu = time.thread_time()
         self.end_mono: Optional[float] = None
+        self.end_wall_ns: Optional[int] = None
         self.cpu_s = 0.0
         # which OS thread executed the span: the self-time attribution
         # (obs/profile.py) only subtracts a child from its parent when
@@ -155,6 +161,7 @@ class Span:
             return
         self._ended = True
         self.end_mono = time.monotonic()
+        self.end_wall_ns = time.time_ns()
         self.cpu_s = max(0.0, time.thread_time() - self.start_cpu)
         self.tracer._finish(self)
 
@@ -234,6 +241,16 @@ class Tracer:
             return NOOP_SPAN
         return Span(self, name, parent.trace_id, parent.span_id, attrs)
 
+    def span_or_root(self, name: str, attrs: Optional[dict] = None):
+        """A child of the ambient span, or the root of a new trace where
+        none is open (a phase that runs both alone and inside another)."""
+        if not self.enabled:
+            return NOOP_SPAN
+        parent = _current.get()
+        if parent is None or not parent.recording:
+            return Span(self, name, _new_trace_id(), "", attrs)
+        return Span(self, name, parent.trace_id, parent.span_id, attrs)
+
     def record_span(self, name: str, start_mono: float, end_mono: float,
                     parent=None, attrs: Optional[dict] = None) -> None:
         """Record a span retroactively from explicit monotonic bounds —
@@ -246,7 +263,7 @@ class Tracer:
             return
         self._store_finished({
             "span_id": _new_span_id(), "parent_id": parent.span_id,
-            "name": name, "start_mono": start_mono,
+            "name": name, "start_mono": start_mono, "end_mono": end_mono,
             "duration_ms": max(0.0, (end_mono - start_mono) * 1000.0),
             "cpu_ms": 0.0,   # a retroactive span is pure wait by definition
             "thread": threading.get_ident(),
@@ -258,7 +275,9 @@ class Tracer:
         rec = {
             "span_id": span.span_id, "parent_id": span.parent_id,
             "name": span.name, "start_mono": span.start_mono,
-            "start_wall": span.start_wall,
+            "end_mono": span.end_mono, "start_wall": span.start_wall,
+            "start_wall_ns": span.start_wall_ns,
+            "end_wall_ns": span.end_wall_ns,
             "duration_ms": max(0.0, ((span.end_mono or span.start_mono)
                                      - span.start_mono) * 1000.0),
             "cpu_ms": span.cpu_s * 1000.0,
@@ -310,6 +329,11 @@ class Tracer:
                 "duration_ms": round(s["duration_ms"], 3),
                 "cpu_ms": round(s.get("cpu_ms", 0.0), 3),
                 "thread": s.get("thread", 0),
+                # the clocks unrounded: monotonic seconds, and wall-clock
+                # Unix nanoseconds where the span was live (not retroactive)
+                "start_mono": s["start_mono"], "end_mono": s["end_mono"],
+                "start_wall_ns": s.get("start_wall_ns"),
+                "end_wall_ns": s.get("end_wall_ns"),
                 "attrs": s["attrs"],
                 "events": [{"offset_ms": round((e["mono"] - t0) * 1000.0, 3),
                             "name": e["name"], "attrs": e["attrs"]}
@@ -410,6 +434,10 @@ def root_span(name: str, attrs: Optional[dict] = None,
 
 def span(name: str, attrs: Optional[dict] = None):
     return _TRACER.span(name, attrs)
+
+
+def span_or_root(name: str, attrs: Optional[dict] = None):
+    return _TRACER.span_or_root(name, attrs)
 
 
 def record_span(name: str, start_mono: float, end_mono: float,

@@ -18,7 +18,9 @@ collectives across the node's cards), ``perf`` (the kernel
 microbenchmarks) and ``vfio`` (every card is bound to vfio-pci).  Each component validates its layer, then
 writes its ``*-ready`` status file — the barrier the next layer's init
 container blocks on; ``--wait`` turns a component into a pure barrier
-consumer.
+consumer.  With the port's tracer on (``obs/trace.py``) each run of a
+component is the root span ``validator.component`` (``component``,
+``ok``) of the spans its workloads open.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ from ..client import ConflictError
 from ..deviceplugin.sharing import DEFAULT_RESOURCE_NAME
 from ..driver.install import DriverError, check_driver
 from ..host import Host, host_for_root
+from ..obs import trace
+from .spans import ranged
 
 log = logging.getLogger(__name__)
 
@@ -515,14 +519,18 @@ def run_component(component: str, ctx: Context, wait_only: bool = False,
             status_file, ctx.status_dir,
             timeout_s=POD_WAIT_RETRIES * POD_WAIT_SLEEP_S, sleep=ctx.sleep)
     ctx.in_pod = in_pod
-    if not in_pod:
-        statusfiles.clear_status(status_file, ctx.status_dir)
-        # non-barrier records too: a surviving report from a previous run
-        # would keep serving stale numbers
-        for extra in EXTRA_STATUS_FILES.get(component, ()):
-            statusfiles.clear_status(extra, ctx.status_dir)
-    values = COMPONENTS[component](ctx)
-    if not in_pod:
-        statusfiles.write_status(status_file, values, ctx.status_dir)
+    with ranged(trace.root_span("validator.component",
+                                {"component": component,
+                                 "ok": False})) as span:
+        if not in_pod:
+            statusfiles.clear_status(status_file, ctx.status_dir)
+            # non-barrier records too: a surviving report from a previous
+            # run would keep serving stale numbers
+            for extra in EXTRA_STATUS_FILES.get(component, ()):
+                statusfiles.clear_status(extra, ctx.status_dir)
+        values = COMPONENTS[component](ctx)
+        if not in_pod:
+            statusfiles.write_status(status_file, values, ctx.status_dir)
+        span.set_attr("ok", True)
     log.info("%s validation succeeded: %s", component, values)
     return values

@@ -21,14 +21,19 @@ replays it:
   result for every ``n`` is the eager chain's bit for bit;
 * the kernel wrappers count their launches in Python (``ops.LAUNCHES``):
   the counts a capture adds are taken back, since a capture launches
-  nothing, and each replay adds them once.  Before its first capture a unit
-  runs one step eagerly on its buffer to load the kernels it will record
-  (the library and each kernel module are loaded on first launch); that
-  step launches and is counted, and its result is overwritten by the
-  chain's start value;
+  nothing, and a run adds them once for each of its replays.  Before its
+  first capture a unit runs one step eagerly on its buffer to load the
+  kernels it will record (the library and each kernel module are loaded
+  on first launch); that step launches and is counted, and its result is
+  overwritten by the chain's start value;
 * :meth:`ChainGraphs.close` releases every graph, its private memory pool
   and the static buffers, so what comes after the probe or burn-in has
   the memory back.
+
+With the port's tracer on (``obs/trace.py``) a capture and a release are
+spans: ``validator.graphs.capture`` (``kind``, the key's first item) and
+``validator.graphs.release`` (``graphs``, how many were released).  No
+span is opened per run or replay.
 
 There is no fallback: a failed capture or replay raises.  The chains'
 callers route only CUDA tensors here; on the CPU they stay eager.
@@ -41,7 +46,9 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
+from ..obs import trace
 from . import ops
+from .spans import ranged
 
 # steps per captured unit
 UNIT = 16
@@ -91,50 +98,64 @@ class ChainGraphs:
         replays, rest = self.plan(n)
         full_key = (key, tuple(init.shape), init.dtype, init.device)
         unit = self._units.get(full_key)
-        if unit is None:
+        if replays and (unit is None or unit.graph is None):
+            unit = self._capture(full_key, step, init)
+        elif unit is None:
             unit = self._units[full_key] = _Unit(torch.empty_like(init))
-        if replays and unit.graph is None:
-            self._capture(unit, step, init)
         unit.state.copy_(init)
         for _ in range(replays):
             unit.graph.replay()
+        if replays:
             for name, count in unit.launches.items():
-                ops.LAUNCHES[name] += count
+                ops.LAUNCHES[name] += replays * count
         state = unit.state
         for _ in range(rest):
             state = step(state)
         return state
 
-    def _capture(self, unit: _Unit, step: Step, init: torch.Tensor) -> None:
-        unit.state.copy_(init)
-        step(unit.state)                    # loads the kernels; counted
+    def _capture(self, full_key: Tuple, step: Step,
+                 init: torch.Tensor) -> _Unit:
+        """Capture the unit of ``full_key``, making its static buffer where
+        the key has none yet."""
+        key = full_key[0]
+        kind = key[0] if isinstance(key, tuple) else key
+        with ranged(trace.span("validator.graphs.capture", {"kind": kind})):
+            unit = self._units.get(full_key)
+            if unit is None:
+                unit = self._units[full_key] = _Unit(torch.empty_like(init))
+            unit.state.copy_(init)
+            step(unit.state)                # loads the kernels; counted
 
-        def body() -> None:
-            state = unit.state
-            for _ in range(UNIT):
-                state = step(state)
-            if state is not unit.state:
-                unit.state.copy_(state)
+            def body() -> None:
+                state = unit.state
+                for _ in range(UNIT):
+                    state = step(state)
+                if state is not unit.state:
+                    unit.state.copy_(state)
 
-        graph = torch.cuda.CUDAGraph()
-        before = dict(ops.LAUNCHES)
-        try:
-            _record(graph, body)
-        finally:
-            unit.launches = {name: ops.LAUNCHES[name] - before.get(name, 0)
-                             for name in ops.LAUNCHES}
-            ops.LAUNCHES.update(before)
-        unit.graph = graph
+            graph = torch.cuda.CUDAGraph()
+            before = dict(ops.LAUNCHES)
+            try:
+                _record(graph, body)
+            finally:
+                unit.launches = {
+                    name: ops.LAUNCHES[name] - before.get(name, 0)
+                    for name in ops.LAUNCHES}
+                ops.LAUNCHES.update(before)
+            unit.graph = graph
+        return unit
 
     def close(self) -> None:
         """Release every graph, its memory pool and the static buffers."""
-        captured = False
-        for unit in self._units.values():
-            if unit.graph is not None:
+        captured = [u for u in self._units.values() if u.graph is not None]
+        if not captured:
+            self._units.clear()
+            return
+        with ranged(trace.span("validator.graphs.release",
+                               {"graphs": len(captured)})):
+            for unit in captured:
                 unit.graph.reset()
-                captured = True
-        self._units.clear()
-        if captured:
+            self._units.clear()
             # the pools' blocks go back to the device, not only to the
             # caching allocator
             torch.cuda.empty_cache()

@@ -16,6 +16,10 @@ any card.  On the card both rate chains replay as CUDA graphs
 (``validator/graphs.py``), the counterpart of the reference's one-dispatch
 ``fori_loop`` chains, and every known part is gated on floors set by
 ``MXU_GATE_FRACTION`` and ``HBM_GATE_FRACTION`` of its peaks.
+
+With the port's tracer on (``obs/trace.py``) each chain call of a probe's
+rate is a ``validator.chain`` span (``steps``, ``role`` ``warm`` or
+``timed``).
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import numpy as np
 import torch
 
 from ..host import chip_type_from_name
+from ..obs import trace
 from . import ops
 from .graphs import ChainGraphs, chain
+from .spans import ranged
 from .workloads import ValidationReport, _burn_in_fn
 
 # Public per-part peaks: (bf16 dense TFLOP/s, device-memory GB/s), from
@@ -116,15 +122,20 @@ def _two_point_rate(run, work_per_rep: float, r1: int, r2: int) -> float:
     cancelling the fixed launch/synchronise/fetch overhead of a call.
     ``run(reps)`` must block until the device work is done.  Each point is
     best-of-2: jitter only adds time, so min filters it."""
-    run(r1)  # warm-up: builds the kernels, fills the allocator's cache
-    run(r2)
+    # warm-up: builds the kernels, fills the allocator's cache
+    for r in (r1, r2):
+        with ranged(trace.span("validator.chain",
+                               {"steps": r, "role": "warm"})):
+            run(r)
 
     def timed_min(r: int) -> float:
         best = float("inf")
         for _ in range(2):
-            t0 = time.perf_counter()
-            run(r)
-            best = min(best, time.perf_counter() - t0)
+            with ranged(trace.span("validator.chain",
+                                   {"steps": r, "role": "timed"})):
+                t0 = time.perf_counter()
+                run(r)
+                best = min(best, time.perf_counter() - t0)
         return best
 
     dt1 = timed_min(r1)

@@ -30,6 +30,13 @@ coordinate in the mesh, row-major.  Each returns the same report on every
 rank (``_dist.agree``).  Where JAX drew inputs from ``jax.random``, the port
 draws them from a seeded CPU ``torch.Generator`` (then moves them to the
 device), so a card and the CPU see the same numbers.
+
+With the port's tracer on (``obs/trace.py``), ``run_full_validation`` is
+the span ``validator.full`` (``expected_chips``); each level of
+:func:`_escalated_marginal` is a ``validator.escalation`` span (``lo``,
+``hi``, the best ``lo_s`` and ``hi_s``, ``target_s``, ``final``) and each
+chain call it times a ``validator.chain`` span (``steps``, ``role``
+``warm`` or ``timed``).  No span is opened per chain step.
 """
 
 from __future__ import annotations
@@ -43,8 +50,10 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..obs import trace
 from . import _dist, ops
 from .graphs import ChainGraphs, chain
+from .spans import ranged
 
 
 @dataclasses.dataclass
@@ -154,12 +163,15 @@ def _timed_min(run, n: int, k: int = 2):
     kernels and warms the allocator; min discards positive noise).  The
     completion barrier is the synchronise plus the fetch of the small
     result.  Returns (best_seconds, fetched results)."""
-    _fetch(run(n))
+    with ranged(trace.span("validator.chain", {"steps": n, "role": "warm"})):
+        _fetch(run(n))
     best, vals = float("inf"), []
     for _ in range(k):
-        t0 = time.perf_counter()
-        v = _fetch(run(n))
-        best = min(best, time.perf_counter() - t0)
+        with ranged(trace.span("validator.chain",
+                               {"steps": n, "role": "timed"})):
+            t0 = time.perf_counter()
+            v = _fetch(run(n))
+            best = min(best, time.perf_counter() - t0)
         vals.append(v)
     return best, vals
 
@@ -172,9 +184,16 @@ def _escalated_marginal(run, lo: int, cap: int):
     hi = lo
     while True:
         hi *= 64
-        dt_lo, _ = _timed_min(run, lo)
-        dt, vals = _timed_min(run, hi)
-        if dt - dt_lo > _MIN_MARGINAL_WINDOW_S or hi * 64 > cap:
+        target = _MIN_MARGINAL_WINDOW_S
+        with ranged(trace.span("validator.escalation", {
+                "lo": lo, "hi": hi, "target_s": target})) as span:
+            dt_lo, _ = _timed_min(run, lo)
+            dt, vals = _timed_min(run, hi)
+            final = dt - dt_lo > target or hi * 64 > cap
+            span.set_attr("lo_s", dt_lo)
+            span.set_attr("hi_s", dt)
+            span.set_attr("final", final)
+        if final:
             return dt - dt_lo, hi, dt, vals
 
 
@@ -951,27 +970,31 @@ def run_full_validation(mesh: Optional[DeviceMesh] = None,
     ``device_check``, ``matmul_burn_in`` and ``hbm_stress`` on its card and
     every rank returns rank 0's reports for them; the collective legs run
     on every rank."""
-    dev = _dist.device()
-    reports = None
-    if dist.get_rank() == 0:
-        reports = [device_check(expected_chips, device=dev.type)]
-        if reports[0].ok:
-            reports.append(matmul_burn_in(size=256 if quick else 1024,
+    with ranged(trace.span_or_root("validator.full",
+                                   {"expected_chips": expected_chips})):
+        dev = _dist.device()
+        reports = None
+        if dist.get_rank() == 0:
+            reports = [device_check(expected_chips, device=dev.type)]
+            if reports[0].ok:
+                reports.append(matmul_burn_in(size=256 if quick else 1024,
+                                              device=dev))
+                reports.append(hbm_stress(mib=32 if quick else 256,
                                           device=dev))
-            reports.append(hbm_stress(mib=32 if quick else 256, device=dev))
-    shared = [reports]
-    dist.broadcast_object_list(shared, src=0)
-    reports = shared[0]
-    if not reports[0].ok:
+        shared = [reports]
+        dist.broadcast_object_list(shared, src=0)
+        reports = shared[0]
+        if not reports[0].ok:
+            return reports
+        mesh = make_mesh() if mesh is None else mesh
+        if mesh.size() > 1:
+            reports.append(ici_psum_check(mesh))
+            reports.append(ici_ring_check(mesh))
+            reports.append(ici_all_gather_check(mesh))
+            reports.append(ring_attention_check(mesh))
+            # the gang-readiness collective over a virtual multi-process
+            # mesh shaped like the slice's host axis
+            reports.append(
+                multihost_allreduce_check(processes=mesh.shape[0]))
+        reports.append(slice_burn_in(mesh))
         return reports
-    mesh = make_mesh() if mesh is None else mesh
-    if mesh.size() > 1:
-        reports.append(ici_psum_check(mesh))
-        reports.append(ici_ring_check(mesh))
-        reports.append(ici_all_gather_check(mesh))
-        reports.append(ring_attention_check(mesh))
-        # the gang-readiness collective over a virtual multi-process mesh
-        # shaped like the slice's host axis
-        reports.append(multihost_allreduce_check(processes=mesh.shape[0]))
-    reports.append(slice_burn_in(mesh))
-    return reports
