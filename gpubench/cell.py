@@ -10,7 +10,10 @@ module ``entries/<entry>.py`` found by name, with
 * ``run(cell, objects, call, result)``: the call, then its verdict: ""
   where it is the healthy one, else why not (the pass fails);
 * ``answers(config, call)``: kind -> the sizes the configuration says the
-  call computes (``compare.expected``).
+  call computes (``compare.expected``);
+* optionally ``peaks(cell, objects)``: the memory peak of each card the
+  entry's objects hold ranks on, card 0 first (``ranks.Ranks.peaks``), for
+  a cell over several cards.
 
 This module is the one generator that reads every mix: a new mix is a new
 data file, and a new kind of call a new entry file.
@@ -52,15 +55,30 @@ class Cell:
         self.objects: Dict[str, object] = {}
 
     def open(self) -> "Cell":
-        for call in self.calls:
-            name = call["entry"]
-            if name not in self.objects:
-                self.objects[name] = self.entries[name].open(self)
+        try:
+            for call in self.calls:
+                name = call["entry"]
+                if name not in self.objects:
+                    self.objects[name] = self.entries[name].open(self)
+        except BaseException:
+            # what the entries opened first (ranks held on other cards)
+            self.close()
+            raise
         return self
 
     def close(self) -> None:
         for name in reversed(list(self.objects)):
             self.entries[name].close(self, self.objects.pop(name))
+
+    def peaks(self) -> List[int]:
+        """Each card's memory peak, card 0 first, as the first entry that
+        reports peaks reads them; [] where none does, as in a cell on one
+        card."""
+        for name, objects in self.objects.items():
+            read = getattr(self.entries[name], "peaks", None)
+            if read is not None:
+                return list(read(self, objects))
+        return []
 
     def run_pass(self) -> PassResult:
         result = PassResult(True)

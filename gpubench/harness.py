@@ -18,11 +18,18 @@ the reference, and the result line.
 4. runs passes back to back, one client, until ``--seconds`` have passed;
    the window ends when its last pass ends, and every pass counts.  With
    ``--trace 1`` the profiler records the first passes (``trace``);
-5. reads the card's memory peak, fails where JAX, jaxlib, flax or the JAX
-   package was loaded, frees the program's state, then compares every
-   answer of the window with the reference (``compare``), and in a traced
-   run each chain call's kernels with its steps, and prints the metrics,
-   each number compared beside its limit last.
+5. reads the memory peak of the fullest card (card 0's, or where an entry
+   holds ranks on several cards the largest of theirs, each card's beside
+   it), fails where JAX, jaxlib, flax or the JAX package was loaded (in
+   this process, or in a rank held on another card, ``ranks``), frees the
+   program's state, then compares every answer of the window with the
+   reference (``compare``), and in a traced run each chain call's kernels
+   with its steps, and prints the metrics, each number compared beside its
+   limit last.
+
+Ranks held on several cards that break (a child raised or died) end the
+run with exit code 3 and no result, as does a function they should run
+that the checkout lacks.
 
 The program's entries take no seed: every pass computes the same answers
 from the program's own fixed seeds, and ``--seed`` is recorded only.
@@ -187,6 +194,7 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None,
 
     from .cell import Cell
     from .observed import Observed
+    from .ranks import RanksError
     from .taps import Taps, hold_values
 
     taps = Taps()
@@ -194,20 +202,27 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None,
         kind.install(taps)
     for name, target in config.get("spans", {}).items():
         taps.patch(target, taps.span(name))
-    cell = Cell(config, mix, device, entries).open()
     try:
-        warm = cell.run_pass()
-        if not warm.ok:
-            print(f"gpubench: the untimed pass failed: {warm.detail}",
-                  file=sys.stderr)
-        taps.clear()
-        built = build_files(root / "build") != build_before
-        window = _window(cell, taps, args.seconds, bool(args.trace), device)
-        peak = (torch.cuda.max_memory_allocated(0) if device == "cuda"
-                else 0)
-    finally:
+        cell = Cell(config, mix, device, entries).open()
+        try:
+            warm = cell.run_pass()
+            if not warm.ok:
+                print(f"gpubench: the untimed pass failed: {warm.detail}",
+                      file=sys.stderr)
+            taps.clear()
+            built = build_files(root / "build") != build_before
+            window = _window(cell, taps, args.seconds, bool(args.trace),
+                             device)
+            peak = (torch.cuda.max_memory_allocated(0) if device == "cuda"
+                    else 0)
+            by_card = cell.peaks()
+        finally:
+            taps.remove()
+            cell.close()
+    except RanksError as e:
         taps.remove()
-        cell.close()
+        print(f"gpubench: {e}", file=sys.stderr)
+        return 3
     passes, reports, failed, traced, prof, setup_s = window
 
     loaded = forbidden_modules()
@@ -251,8 +266,12 @@ def main(argv: Optional[List[str]] = None, device: Optional[str] = None,
         if value is not None:
             metrics[entry["name"]] = {"value": float(value),
                                       "unit": entry["unit"]}
+    if by_card:
+        peak = max(by_card)
     dev = {"platform": "gpu" if device == "cuda" else device, "kind": card,
            "count": work["chips"], "memory_peak_bytes": int(peak)}
+    if by_card:
+        dev["memory_peak_by_card"] = by_card
     line = {"correct": bool(correct), "attempted": len(passes),
             "failed": len(failed), "metrics": metrics, "device": dev}
     if args.trace and trace is not None:

@@ -3,7 +3,12 @@
 :func:`small_root` writes a checkout-shaped directory that holds only a
 ``BENCHMARK.json``, configurations of its own, and the real mixes,
 entries, kinds of answer and metric readers, so a test adds cells from
-files alone.  :func:`shrink`
+files alone.  Each configuration's CPU copy follows one rule: where
+``tests/cpu_configs/<configuration>.json`` exists, it gives the copy's
+name and the answer tables at the sizes the CPU path computes, and the
+copy takes the limits the test passes; a configuration without one is
+copied as it is, under its own name, and its cells are left to tests of
+their own.  :func:`shrink`
 makes the program's burn-in and stress run at small sizes on the CPU (the
 kernels' plain versions), as the card's sizes would take minutes there.
 """
@@ -41,44 +46,46 @@ def shrink(monkeypatch) -> None:
     monkeypatch.setattr(workloads, "_MIN_MARGINAL_WINDOW_S", 1e-4)
 
 
-def _config(name: str, real: str, answers: dict) -> dict:
-    with open(HERE / "configs" / f"{real}.json") as f:
-        config = json.load(f)
-    config["name"] = name
-    for key, table in answers.items():
+def _cpu_copy(config: dict, cpu: dict) -> dict:
+    """``config`` with the CPU copy's ``name`` and each ``answers`` table of
+    ``cpu`` in place of its own (a component's, or a top-level group's)."""
+    config["name"] = cpu["name"]
+    for key, table in cpu["answers"].items():
         target = (config["components"][key] if key in config["components"]
                   else config[key]) if "components" in config else config[key]
         target["answers"] = table
     return config
 
 
-def small_root(tmp: Path, limits: dict) -> Path:
-    """A checkout-shaped directory with the cells at CPU sizes."""
+def small_root(tmp: Path, limits: dict, source: Path = HERE.parent) -> Path:
+    """A checkout-shaped directory with the cells of ``source`` (a
+    checkout) at CPU sizes."""
     root = tmp / "checkout"
     (root / "gpubench").mkdir(parents=True)
     for folder in ("metrics", "mixes", "entries", "kinds"):
-        shutil.copytree(HERE / folder, root / "gpubench" / folder,
+        shutil.copytree(source / "gpubench" / folder,
+                        root / "gpubench" / folder,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (root / "gpubench" / "configs").mkdir()
-    with open(HERE.parent / "BENCHMARK.json") as f:
+    with open(source / "BENCHMARK.json") as f:
         bench = json.load(f)
-    gate = _config("gate-cpu", "gate-h100", {
-        "torch": {"burn_in": [BURN_IN_TORCH], "stress": [STRESS_ELEMENTS]},
-        "perf": {"burn_in": [MXU_CPU], "triad": [TRIAD_CPU], "fma": [FMA]}})
-    full = _config("fullchain-cpu", "fullchain-h100", {
-        "full_validation": {"burn_in": [BURN_IN_FULL],
-                            "stress": [STRESS_ELEMENTS], "train": [8]}})
-    for config in (gate, full):
-        config["limits"] = dict(limits)
-        with open(root / "gpubench" / "configs" / f"{config['name']}.json",
-                  "w") as f:
-            json.dump(config, f)
-    rename = {"gate-h100": "gate-cpu", "fullchain-h100": "fullchain-cpu"}
+    names = {}
     for c in bench["configs"]:
-        c["file"] = f"gpubench/configs/{rename[c['name']]}.json"
-        c["name"] = rename[c["name"]]
+        with open(source / c["file"]) as f:
+            config = json.load(f)
+        name = c["name"]
+        cpu = source / "gpubench" / "tests" / "cpu_configs" / f"{name}.json"
+        if cpu.exists():
+            with open(cpu) as f:
+                config = _cpu_copy(config, json.load(f))
+            config["limits"] = dict(limits)
+            name = config["name"]
+        names[c["name"]] = c["name"] = name
+        c["file"] = f"gpubench/configs/{name}.json"
+        with open(root / c["file"], "w") as f:
+            json.dump(config, f)
     for w in bench["workloads"]:
-        w["config"] = rename[w["config"]]
+        w["config"] = names[w["config"]]
     with open(root / "BENCHMARK.json", "w") as f:
         json.dump(bench, f)
     return root

@@ -3,6 +3,7 @@ resolving to its file."""
 
 import json
 import re
+import shutil
 
 import pytest
 
@@ -179,3 +180,62 @@ def test_a_kind_and_an_entry_from_files_alone(tmp_path):
         assert cell.run_pass().ok
     finally:
         cell.close()
+
+
+def test_a_configuration_from_files_alone(tmp_path, monkeypatch, capsys):
+    """A new configuration is files of its own: a checkout that adds one
+    with its CPU answer tables (``tests/cpu_configs/``), a mix and a cell,
+    and one more without CPU tables, keeps its cells' CPU runs and runs
+    the new cell; the configuration without tables is copied as it is."""
+    from gpubench import harness
+    from gpubench.tests.test_gpubench_runs import _limits
+
+    source = tmp_path / "source"
+    shutil.copytree(manifest.HERE, source / "gpubench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = manifest.load()
+    gate = manifest.config(bench, "gate-h100")
+    probe = dict(gate, name="probe-h100", source="the perf gate alone",
+                 components={"perf": gate["components"]["perf"]})
+    later = dict(manifest.config(bench, "fullchain-h100"), name="later-h100")
+    gb = source / "gpubench"
+    for config in (probe, later):
+        (gb / "configs" / f"{config['name']}.json").write_text(
+            json.dumps(config))
+        bench["configs"].append({
+            "name": config["name"], "source": config["source"],
+            "file": f"gpubench/configs/{config['name']}.json",
+            "reduced": [], "why": "a configuration from files"})
+    (gb / "tests" / "cpu_configs" / "probe-h100.json").write_text(
+        json.dumps({"name": "probe-cpu", "answers": {"perf": {
+            "burn_in": [cpu_cells.MXU_CPU], "triad": [cpu_cells.TRIAD_CPU],
+            "fma": [cpu_cells.FMA]}}}))
+    (gb / "mixes" / "perf_gate.json").write_text(json.dumps({
+        "why": "the perf gate alone", "calls": [
+            {"entry": "component", "component": "perf"}]}))
+    bench["workloads"] += [
+        {"name": "probe.node", "config": "probe-h100", "traffic": "perf_gate",
+         "chips": 1, "why": "a cell from files"},
+        {"name": "later.node", "config": "later-h100",
+         "traffic": "full_validation", "chips": 1, "why": "no CPU tables"}]
+    (source / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cpu_cells.shrink(monkeypatch)
+    root = cpu_cells.small_root(tmp_path / "small", _limits(), source=source)
+    small = manifest.load(root / "BENCHMARK.json")
+    assert [c["name"] for c in small["configs"]] == [
+        "gate-cpu", "fullchain-cpu", "probe-cpu", "later-h100"]
+    assert manifest.config(small, "later-h100", root) == later
+    assert manifest.cell(small, "later.node")["config"] == "later-h100"
+    for cell in ("gate.node", "fullchain.node", "probe.node"):
+        rc = harness.main(["--workload", cell, "--seed", str(2 ** 31 + 29),
+                           "--seconds", "0.5", "--trace", "0"],
+                          device="cpu", root=root)
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and line["correct"], (cell, line["checks"])
+        assert line["attempted"] >= 1 and line["failed"] == 0
+        # a cell on one card reports the one peak, as it always has
+        assert list(line["device"]) == ["platform", "kind", "count",
+                                        "memory_peak_bytes"]
+    assert "burn_in_gap.256" in line["checks"]
+    assert "stress_gap" not in line["checks"]
